@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's v1 sampling path once on one CUDA card.
+"""Drive the PyTorch port's v1 sampling path and its stage-1 training
+step on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,12 +8,16 @@ Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
 
 0. device — needs CUDA; prints the card's name and power limit.
-1. build — compiles the CUDA kernel library with nvcc and the Triton
-   LayerNorm kernel; prints the seconds each took.
+1. build — compiles each CUDA source with its own nvcc, all at once, and
+   the Triton LayerNorm kernels; prints the seconds each took.
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    same inputs, in f32 (TF32 off) and bf16, at the shapes of the main
-   path and at ragged ones, with the tolerance of each output.
-3. main path — a full-width, seeded random-init stage-2 state written as
+   paths and at ragged ones, with the tolerance of each output: the
+   attention forward at rate 0 and with dropout (rate 0.1 and 0.5, and
+   the kernel's keep-rate read back), the attention backward (dq, dk, dv,
+   with and without mask, rate 0 and 0.1), the LayerNorm forward and
+   backward (dx, dgamma, dbeta).
+3. sampling path — a full-width, seeded random-init stage-2 state written as
    ``Stage2/params.npz``, then the sampling CLI with ``--fused_attn
    --fused_ln`` for 4 captions x 2 samples (batch 8, 256 px, bf16);
    checks the 8 PNGs and that the kernels launched 12 and 25 times, once
@@ -25,6 +30,20 @@ non-zero exit and no result line:
    with kernels on and off, its three stages, and each kernel against its
    plain version; then ``torch.profiler`` over 3 ``sample`` calls: device
    busy time per call and the kernels that take most of it.
+6. training path — ``Stage1System.train_step`` at full width, bf16, batch
+   128 (caption batch doubled to 256, T = 128), with the stage-1 bench
+   headline's BERT flags (fused attention, output-recovered GELU
+   backward, 16-bit dropout draws) and ``fused_ln``, text dropout on:
+   3 steps from a seeded random init with seeded tokens and uint8
+   images; finite metrics, every module's parameters changed, and per
+   step 12 attention forwards (with dropout) and 12 backwards, 25
+   LayerNorm forwards and 25 backwards. Then kernels on vs off: one step
+   from the same state, batch and noise with text dropout off, in f32
+   (TF32 off) and bf16; the 4 metrics, the generator step's encoder and
+   projection gradients and the generator's updated BatchNorm statistics
+   must agree. Then times: the step with kernels on and off (median of 5
+   after 2 warm-ups, img/s), the training kernels against their plain
+   versions, and ``torch.profiler`` over one step.
 
 Then one JSON line of the kernels, the card's line from nvidia-smi, and
 last ``{"ok": true, "device": {...}}``.
@@ -47,12 +66,35 @@ SAMPLES_PER_CAPTION = 2
 BATCH = 8
 ATTN_SHAPE = (BATCH, 128, 768, 12)  # B, T, H, heads: BERT-base at seq_len 128
 LN_SHAPE = (1024, 768)  # B * T rows of BERT-base hidden states
+TRAIN_BATCH = 128
+TRAIN_ATTN = (2 * TRAIN_BATCH, 128, 768, 12)  # the doubled caption batch
+TRAIN_LN = (2 * TRAIN_BATCH * 128, 768)
+TRAIN_STEPS = 3
 TOL = {  # (rtol, atol)
     "attn_o_f32": (1e-4, 1e-5),
     "attn_o_bf16": (2e-2, 2e-2),
     "attn_ml": (1e-4, 0.0),
+    "attn_grad_f32": (1e-3, 1e-4),
+    "attn_grad_bf16": (2e-2, 2e-2),
     "ln_y": (1e-5, 1e-5),
     "ln_stats": (1e-5, 0.0),
+    "ln_dx_f32": (1e-4, 1e-4),
+    "ln_dx_bf16": (1e-2, 1e-2),
+    "ln_dparam": (1e-4, 1e-3),
+}
+KEEP_TOL = 0.005  # |keep rate read back - (1 - rate)|
+# Kernels on vs off over one training step, text dropout off. "metric"
+# and "bn": max abs difference over max(1, the plain side's max abs) of
+# the 4 metrics and of the generator's updated BatchNorm statistics;
+# "grads": relative L2 difference of the encoder's and the projection's
+# gradients for one fixed cotangent of tem over the step's text forward.
+# On an H100 sound kernels read grads 8e-7 (f32) and 4.5e-3 (bf16);
+# planted faults (backward without the mask, ds scaled 8x, LayerNorm
+# dgamma dropped, dx without its xhat term) read 5.1e-2 to 1.8e13 in
+# either; metrics 2.7e-6 / 2.9e-4, BN statistics 3e-8 / 8e-6.
+STEP_TOL = {
+    "f32": {"metric": 1e-3, "bn": 1e-4, "grads": 1e-4},
+    "bf16": {"metric": 2e-2, "bn": 1e-3, "grads": 2e-2},
 }
 IMAGE_TOL = {"f32": 1e-3, "bf16": 0.1}
 # max abs, BERT's last hidden state (values within about +-4). On an H100
@@ -196,6 +238,72 @@ def phase_kernels(attention, layernorm, gen):
     return errs
 
 
+def phase_train_kernels(attention, layernorm, gen):
+    """Phase 2, training kernels: the attention forward with dropout, the
+    attention backward and the LayerNorm backward against their plain
+    versions at the training path's shapes and ragged ones."""
+    import torch
+
+    log("phase 2: training kernels vs plain")
+    errs = {}
+    B, T, H, nh = TRAIN_ATTN
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        set_tf32(False)
+        q, k, v, mask = attention_inputs(B, T, H, dtype, gen)
+        for rate in (0.1, 0.5):
+            o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, SEED + 7)
+            torch.cuda.synchronize()
+            ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, SEED + 7)
+            where = f"attention dropout {rate} {tag} {TRAIN_ATTN[:3]}"
+            errs["attention_dropout", tag, rate] = compare(f"{where} o", o, ro, *TOL[f"attn_o_{tag}"])
+            compare(f"{where} m", m, rm, *TOL["attn_ml"])
+            compare(f"{where} l", l, rl, *TOL["attn_ml"])
+            del o, m, l, ro, rm, rl
+        del q, k, v
+        for (b, t), with_mask, rate in (
+            ((B, T), True, 0.1), ((B, T), False, 0.1), ((B, T), True, 0.0), ((B, T), False, 0.0),
+            ((3, 77), True, 0.1), ((3, 77), False, 0.0), ((2, 1), True, 0.1), ((2, 1), False, 0.0),
+        ):
+            q, k, v, mask = attention_inputs(b, t, H, dtype, gen)
+            mask = mask if with_mask else None
+            do = torch.randn((b, t, H), generator=gen, device="cuda").to(dtype)
+            _, m, l = attention.attention_reference(q, k, v, mask, nh, rate, SEED + 8)
+            got = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, SEED + 8)
+            torch.cuda.synchronize()
+            want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, SEED + 8)
+            where = f"attention bwd {tag} ({b}, {t}, {H}) mask {'on' if with_mask else 'off'} rate {rate}"
+            err = max(compare(f"{where} {name}", g, w, *TOL[f"attn_grad_{tag}"])
+                      for name, g, w in zip(("dq", "dk", "dv"), got, want))
+            errs["attention_bwd", tag, b, with_mask, rate] = err
+            del q, k, v, do, got, want
+        n, d = TRAIN_LN
+        x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)
+        dy = torch.randn((n, d), generator=gen, device="cuda")
+        scale = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        bias = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        _, mean, rstd = layernorm.layernorm_reference(x, scale, bias, 1e-12)
+        got = layernorm.layernorm_bwd(dy, x, mean, rstd, scale, bias)
+        torch.cuda.synchronize()
+        want = layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, bias)
+        where = f"layernorm bwd x {tag} ({n}, {d})"
+        errs["layernorm_bwd", tag] = compare(f"{where} dx", got[0], want[0], *TOL[f"ln_dx_{tag}"])
+        compare(f"{where} dgamma", got[1], want[1], *TOL["ln_dparam"])
+        compare(f"{where} dbeta", got[2], want[2], *TOL["ln_dparam"])
+        del x, dy, got, want
+    # the kernel's own keep rate: q = k = 0 makes p = 1 everywhere, so with
+    # v = 1 each output is inv_keep * (kept keys) / T
+    zeros = torch.zeros((B, T, H), device="cuda")
+    for rate in (0.1, 0.5):
+        o = attention.attention_fwd(zeros, zeros, torch.ones_like(zeros), None, nh, rate, SEED + 9)[0]
+        kept = o.double().mean().item() * (1.0 - rate)
+        ok = abs(kept - (1.0 - rate)) <= KEEP_TOL
+        log(f"  attention dropout {rate}: keep rate read back {kept:.5f} "
+            f"(want {1 - rate:.3f} +- {KEEP_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("attention dropout keeps the wrong share")
+    return errs
+
+
 def png_size(path: Path) -> tuple[int, int]:
     data = path.read_bytes()
     if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
@@ -224,8 +332,7 @@ def phase_main_path(tmp: Path, attention, layernorm):
         f"written in {time.perf_counter() - t0:.1f} s")
 
     out = tmp / "samples"
-    attention.launches = 0
-    layernorm.launches = 0
+    reset_counts(attention, layernorm)
     t0 = time.perf_counter()
     sample.main([
         "--stage", "2", "--checkpoint_dir", str(tmp / "ckpt"),
@@ -233,18 +340,33 @@ def phase_main_path(tmp: Path, attention, layernorm):
         "-o", str(out), "--seed", str(SEED), "--fused_attn", "--fused_ln",
     ])
     torch.cuda.synchronize()
-    launches = {"attention": attention.launches, "layernorm": layernorm.launches}
+    launches = read_counts(attention, layernorm)
     log(f"  sample CLI: {time.perf_counter() - t0:.1f} s (load, first calls, "
         f"PNG writes); launches {launches}")
     pngs = sorted(out.glob("sample_*.png"))
     sizes = {png_size(p) for p in pngs}
     if len(pngs) != BATCH or sizes != {(256, 256)}:
         raise AssertionError(f"expected {BATCH} PNGs of 256x256, got {len(pngs)} {sizes}")
-    want = {"attention": 12, "layernorm": 25}  # one BERT-base forward
+    # one BERT-base forward, no dropout, no backward
+    want = {"attention": 12, "attention_dropout": 0, "attention_bwd": 0,
+            "layernorm": 25, "layernorm_bwd": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     log(f"  {len(pngs)} PNGs at 256x256; launches match one BERT forward {want}")
     return flat, launches
+
+
+def reset_counts(attention, layernorm) -> None:
+    attention.launches = attention.dropout_launches = attention.bwd_launches = 0
+    layernorm.launches = layernorm.bwd_launches = 0
+
+
+def read_counts(attention, layernorm) -> dict:
+    return {
+        "attention": attention.launches, "attention_dropout": attention.dropout_launches,
+        "attention_bwd": attention.bwd_launches,
+        "layernorm": layernorm.launches, "layernorm_bwd": layernorm.bwd_launches,
+    }
 
 
 def path_inputs(gen):
@@ -377,6 +499,205 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
     return sample_ms, timed["attention"], timed["layernorm"]
 
 
+def train_config(fused: bool, text_dropout: bool, dtype):
+    """Full-width ``Stage1Config`` with the stage-1 bench headline's BERT
+    flags; ``fused`` turns both kernels on (with ``fused_ln``)."""
+    from imagegenerator_tpu_torch.models.bert import BertConfig
+    from imagegenerator_tpu_torch.train.stage1 import Stage1Config
+
+    bert = BertConfig(fused_attention=fused, fused_ln=fused, gelu_output_bwd=True, dropout_bits=16)
+    return Stage1Config(compute_dtype=dtype, bert=bert, text_dropout=text_dropout)
+
+
+def train_batch(cfg, gen):
+    """Seeded tokens with ragged padding and uint8 64 px images."""
+    import torch
+
+    B, T = TRAIN_BATCH, cfg.seq_len
+    lengths = torch.randint(8, T + 1, (B,), generator=gen, device="cuda")
+    return {
+        "input_ids": torch.randint(1, cfg.bert.vocab_size, (B, T), generator=gen, device="cuda",
+                                   dtype=torch.int32),
+        "attention_mask": (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).int(),
+        "image": torch.randint(0, 256, (B, cfg.resolution, cfg.resolution, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8),
+    }
+
+
+def train_noise(cfg, gen):
+    import torch
+
+    B, n = TRAIN_BATCH, cfg.n_critic
+    return {
+        "perm": torch.randperm(B, generator=gen, device="cuda"),
+        "ca_eps": torch.randn((n, B, cfg.c_dim), generator=gen, device="cuda"),
+        "z": torch.randn((n, B, cfg.z_dim), generator=gen, device="cuda"),
+        "gp_eps": torch.rand((n, B, 1, 1, 1), generator=gen, device="cuda"),
+    }
+
+
+def text_grads(system, batch, perm, cot) -> dict:
+    """The encoder's and projection's gradients of ``sum(tem * cot)``
+    over the step's text forward (the doubled caption batch, dropout
+    off), each module's flattened into one vector."""
+    import torch
+
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    tem = system.encode_text(torch.cat([ids, ids[perm]]), torch.cat([mask, mask[perm]]))
+    params = {m: list(getattr(system, m).parameters()) for m in ("encoder", "projection")}
+    grads = iter(torch.autograd.grad((tem.float() * cot).sum(), params["encoder"] + params["projection"]))
+    return {m: torch.cat([next(grads).flatten() for _ in ps]) for m, ps in params.items()}
+
+
+def train_system(cfg, state):
+    from imagegenerator_tpu_torch.train.stage1 import Stage1System
+
+    system = Stage1System(cfg, device="meta")
+    system.load_state_dict({k: v.clone() for k, v in state.items()}, assign=True)
+    return system
+
+
+def phase_train(attention, layernorm, gen, card):
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage1 import MODULES, Stage1System
+
+    log(f"phase 6: training path, batch {TRAIN_BATCH}, bf16")
+    set_tf32(False)
+    cfg = train_config(True, True, torch.bfloat16)
+    t0 = time.perf_counter()
+    system = Stage1System(cfg, device="cuda", generator=gen)
+    init = {k: v.clone() for k, v in system.state_dict().items()}
+    batch = train_batch(cfg, gen)
+    host = torch.Generator().manual_seed(SEED)
+    n_params = sum(p.numel() for p in system.parameters())
+    log(f"  full-width random init, {n_params / 1e6:.1f}M parameters, "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_step = {"attention": 12, "attention_dropout": 12, "attention_bwd": 12,
+                "layernorm": 25, "layernorm_bwd": 25}
+    totals = dict.fromkeys(per_step, 0)
+    for i in range(TRAIN_STEPS):
+        reset_counts(attention, layernorm)
+        t0 = time.perf_counter()
+        metrics = system.train_step(batch, generator=gen, host_generator=host)
+        torch.cuda.synchronize()
+        counts = read_counts(attention, layernorm)
+        values = {k: v.item() for k, v in metrics.items()}
+        log(f"  step {i + 1}: {time.perf_counter() - t0:.2f} s, "
+            + ", ".join(f"{k} {v:.5g}" for k, v in values.items()) + f"; launches {counts}")
+        if counts != per_step:
+            raise AssertionError(f"step {i + 1}: kernel launches {counts}, expected {per_step}")
+        if not all(map(torch.isfinite, metrics.values())):
+            raise AssertionError(f"step {i + 1}: metrics not finite")
+        for k in totals:
+            totals[k] += counts[k]
+    after = system.state_dict()
+    for module in MODULES:
+        if not any(not torch.equal(after[k], v) for k, v in init.items()
+                   if k.startswith(module + ".")):
+            raise AssertionError(f"{module}: no parameter changed in {TRAIN_STEPS} steps")
+    log(f"  every module's parameters changed; launches over {TRAIN_STEPS} steps {totals}")
+    state = {k: v.clone() for k, v in system.state_dict().items()}
+    del system, init, after
+
+    log("phase 6: one step, kernels on vs off (text dropout off)")
+    noise = train_noise(cfg, gen)
+    cot = torch.randn((2 * TRAIN_BATCH, cfg.tem_size), generator=gen, device="cuda")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        set_tf32(False)
+        on = train_system(train_config(True, False, dtype), state)
+        off = train_system(train_config(False, False, dtype), state)
+        # from the same state: before the step, which moves each side's
+        # parameters by its own (ill-conditioned) generator-step gradients
+        grads_on, grads_off = text_grads(on, batch, noise["perm"], cot), text_grads(off, batch, noise["perm"], cot)
+        m_on, m_off = on.train_step(batch, noise=noise), off.train_step(batch, noise=noise)
+        torch.cuda.synchronize()
+        for module in ("encoder", "projection"):
+            got = torch.cat([p.grad.flatten().double() for p in getattr(on, module).parameters()])
+            want = torch.cat([p.grad.flatten().double() for p in getattr(off, module).parameters()])
+            log(f"  {tag} generator-step {module} grads: relative L2 difference "
+                f"{((got - want).norm() / want.norm()).item():.3e} (reported, not held: "
+                f"ill-conditioned through the KL term's 2 / sigma)")
+        readings = {f"metric {k}": ("metric", m_on[k], m_off[k]) for k in m_on}
+        stats = [(b, off.generator.get_buffer(n)) for n, b in on.generator.named_buffers()]
+        readings["generator BN stats"] = ("bn", torch.cat([a.flatten() for a, _ in stats]),
+                                          torch.cat([b.flatten() for _, b in stats]))
+        for module in grads_on:
+            readings[f"{module} grads, fixed tem cotangent"] = ("grads", grads_on[module], grads_off[module])
+        for what, (kind, a, b) in readings.items():
+            a, b = a.double(), b.double()
+            if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+                raise AssertionError(f"{tag} {what}: not finite")
+            if kind == "grads":
+                rel, how = ((a - b).norm() / b.norm()).item(), "relative L2 difference"
+            else:
+                rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                how = "max abs diff / max(1, max abs)"
+            limit = STEP_TOL[tag][kind]
+            ok = rel <= limit
+            log(f"  {tag} {what}: {how} {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: kernels-on {what} disagrees with kernels-off")
+        del on, off
+
+    log(f"phase 6: times on {card} (medians of 5 after 2 warm-ups)")
+    set_tf32(False)
+    systems = {"on": train_system(train_config(True, True, torch.bfloat16), state),
+               "off": train_system(train_config(False, True, torch.bfloat16), state)}
+    gens = {k: (torch.Generator(device="cuda").manual_seed(1), torch.Generator().manual_seed(2))
+            for k in systems}
+
+    def step(tag):
+        return systems[tag].train_step(batch, generator=gens[tag][0], host_generator=gens[tag][1])
+
+    for _ in range(2):
+        step("on")
+        step("off")
+    samples = {"on": [], "off": []}
+    for i in range(5):
+        for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            samples[tag].append(wall_ms(lambda: step(tag), runs=1))
+    step_ms = {k: statistics.median(v) for k, v in samples.items()}
+    for tag in ("on", "off"):
+        log(f"  train_step batch {TRAIN_BATCH} bf16 kernels {tag}: {step_ms[tag]:.3f} ms, "
+            f"{TRAIN_BATCH / step_ms[tag] * 1e3:.1f} img/s (steps {', '.join(f'{t:.1f}' for t in samples[tag])}) "
+            f"[{card}]")
+    for tag in ("on", "off"):
+        host_ms, events = profiled(lambda: step(tag), calls=1)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"  profiled step, kernels {tag}: host {host_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / host_ms:.1f}%), {sum(e.count for e in events)} kernels")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x {e.key[:90]}")
+    del systems, state
+
+    B, T, H, nh = TRAIN_ATTN
+    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+    _, m, l = attention.attention_fwd(q, k, v, mask, nh, 0.1, SEED)
+    n, d = TRAIN_LN
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    dy = torch.randn((n, d), generator=gen, device="cuda")
+    scale = torch.ones(d, device="cuda")
+    _, mean, rstd = layernorm.layernorm_fwd(x, scale, scale, 1e-12)
+    timed = {}
+    for name, kernel, plain in (
+        ("attention_fwd_dropout", lambda: attention.attention_fwd(q, k, v, mask, nh, 0.1, SEED),
+         lambda: attention.attention_reference(q, k, v, mask, nh, 0.1, SEED)),
+        ("attention_bwd", lambda: attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, SEED),
+         lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, 0.1, SEED)),
+        ("layernorm_bwd", lambda: layernorm.layernorm_bwd(dy, x, mean, rstd, scale, scale),
+         lambda: layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, scale)),
+    ):
+        timed[name] = {"ms": cuda_ms(kernel, inner=5), "plain_ms": cuda_ms(plain, inner=5)}
+        dev = (device_ms(kernel, calls=5), device_ms(plain, calls=5))
+        shape = f"f32 {TRAIN_LN}" if name == "layernorm_bwd" else f"bf16 {TRAIN_ATTN[:3]}, rate 0.1"
+        log(f"  {name} {shape}: kernel {timed[name]['ms']:.4f} ms, plain "
+            f"{timed[name]['plain_ms']:.4f} ms back to back by CUDA events; device time "
+            f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms [{card}]")
+    return totals, timed
+
+
 def main() -> int:
     import torch
 
@@ -396,28 +717,36 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    _build.library()
-    log(f"  nvcc library: {time.perf_counter() - t0:.2f} s ({_build.library_path()})")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    _build.build_all()
+    log(f"  nvcc, {len(_build.names())} sources in parallel: {time.perf_counter() - t0:.2f} s "
+        f"({_build.build_dir()})")
+    for name in _build.names():
+        _build.library(name)
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
     import triton
 
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         xs = torch.zeros((8, LN_SHAPE[1]), dtype=dtype, device="cuda")
         w = torch.ones(LN_SHAPE[1], device="cuda")
-        layernorm.layernorm_fwd(xs, w, w, 1e-12)
+        _, mean, rstd = layernorm.layernorm_fwd(xs, w, w, 1e-12)
+        layernorm.layernorm_bwd(w.expand_as(xs).contiguous(), xs, mean, rstd, w, w)
     torch.cuda.synchronize()
-    log(f"  triton {triton.__version__} layernorm compile: {time.perf_counter() - t0:.2f} s")
+    log(f"  triton {triton.__version__} layernorm fwd + bwd compile: {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = phase_kernels(attention, layernorm, gen)
+    errs.update(phase_train_kernels(attention, layernorm, gen))
     with tempfile.TemporaryDirectory() as tmp:
         flat, launches = phase_main_path(Path(tmp), attention, layernorm)
     batch, noise = path_inputs(gen)
     phase_on_off(flat, batch, noise)
     _, attn_t, ln_t = phase_times(flat, batch, noise, attention, layernorm, gen, card)
+    del flat, batch, noise
+    train_launches, train_t = phase_train(attention, layernorm, gen, card)
+    B = TRAIN_ATTN[0]
 
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
@@ -425,11 +754,26 @@ def main() -> int:
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
          "launches": launches["attention"], "max_abs_err": errs["attention", "bf16"],
          **attn_t},
+        {"name": "attention_fwd_dropout", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
+         "launches": train_launches["attention_dropout"],
+         "max_abs_err": errs["attention_dropout", "bf16", 0.1], **train_t["attention_fwd_dropout"]},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "imagegenerator_tpu/ops/pallas/attention.py:308",
+         "launches": train_launches["attention_bwd"],
+         "max_abs_err": errs["attention_bwd", "bf16", B, True, 0.1], **train_t["attention_bwd"]},
         {"name": "layernorm_fwd", "route": "triton",
          "source": "imagegenerator_tpu_torch/ops/kernels/layernorm.py",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:99",
          "launches": launches["layernorm"], "max_abs_err": errs["layernorm", "f32"],
          **ln_t},
+        {"name": "layernorm_bwd", "route": "triton",
+         "source": "imagegenerator_tpu_torch/ops/kernels/layernorm.py",
+         "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:145",
+         "launches": train_launches["layernorm_bwd"], "max_abs_err": errs["layernorm_bwd", "f32"],
+         **train_t["layernorm_bwd"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,10 +5,18 @@ Both sides meet in a flat dict of numpy arrays keyed
 (``frozen_params``, ``frozen_gen_stats``, ``params``, ``batch_stats``)
 or ``Stage1State``'s (``params``, ``batch_stats``) and the path is
 flax's, e.g. ``frozen_params/gen_1/UpBlock_0/ConvTranspose2d_0/kernel``
-or ``batch_stats/generator/ResidualBlock_0/BatchNorm_2/bn/var``. The JAX
+or ``batch_stats/critic/down_blocks_0/BatchNorm_0/bn/var``. The JAX
 side writes it with ``flax.traverse_util.flatten_dict(..., sep="/")``;
 ``params.npz`` is this dict saved with ``np.savez``. Entries the port has
-no module for (the critic, optimizer state) are ignored.
+no module for (the Stage-II critic, its optimizer state) are ignored.
+
+``Stage1State``'s optimizer state and step count ride in the same dict:
+``step``, and per module m (``encoder`` ... ``critic``) the
+``ScaleByAdamState`` of its optax chain, ``opt_state/<m>/count`` and
+``opt_state/<m>/mu/<path>``, ``opt_state/<m>/nu/<path>``, where
+``<path>`` is the parameter's flax path under ``params/<m>/``. On the
+torch side they are each optimizer's ``step``, ``exp_avg`` and
+``exp_avg_sq`` (the moments in the parameter's torch layout).
 
 Layouts:
   * conv kernel HWIO -> OIHW, and convT kernel ``(kh, kw, out, in)`` ->
@@ -27,6 +35,7 @@ import torch
 
 from imagegenerator_tpu_torch.models.bert import BertEncoder
 from imagegenerator_tpu_torch.ops.layers import BatchNorm, Conv2d, ConvTranspose2d, Dense
+from imagegenerator_tpu_torch.train import schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1System
 from imagegenerator_tpu_torch.train.stage2 import Stage2System
 
@@ -105,26 +114,89 @@ def entries(module):
     return out
 
 
+def _to_torch(arr, layout, device):
+    return torch.from_numpy(np.array(_LAYOUTS[layout][0](np.asarray(arr)), np.float32)).to(device)
+
+
+def _to_flax(t, layout):
+    # a copy: for an f32 CPU tensor .numpy() shares the tensor's memory,
+    # which the optimizers update in place
+    return np.array(_LAYOUTS[layout][1](t.detach().float().cpu().numpy()), order="C", copy=True)
+
+
 def load_numpy(system, flat: dict, device=None) -> None:
     """Load a flat dict into ``system`` (a system or any module that
     ``entries`` takes, built on any device, ``meta`` included): its
-    tensors are replaced by ones on ``device``."""
+    tensors are replaced by ones on ``device``. A ``Stage1System`` also
+    takes the step count and optimizer state where the dict has them."""
     sd = {}
     for key, flat_key, layout in entries(system):
         if flat_key not in flat:
             raise KeyError(f"{flat_key} (for {key}) is missing")
-        arr = np.array(_LAYOUTS[layout][0](np.asarray(flat[flat_key])), np.float32)
-        sd[key] = torch.from_numpy(arr).to(device)
+        sd[key] = _to_torch(flat[flat_key], layout, device)
     system.load_state_dict(sd, strict=True, assign=True)
+    if isinstance(system, Stage1System) and "step" in flat:
+        system.step = int(flat["step"])
+        _load_optimizers(system, flat, device)
 
 
 def to_numpy(system) -> dict:
-    """The flat dict of ``system``'s tensors (inverse of ``load_numpy``)."""
+    """The flat dict of ``system``'s tensors (inverse of ``load_numpy``),
+    with a ``Stage1System``'s step count and optimizer state."""
     sd = system.state_dict()
-    return {
-        flat_key: np.ascontiguousarray(_LAYOUTS[layout][1](sd[key].detach().float().cpu().numpy()))
+    flat = {
+        flat_key: _to_flax(sd[key], layout)
         for key, flat_key, layout in entries(system)
     }
+    if isinstance(system, Stage1System):
+        flat["step"] = np.asarray(system.step, np.int32)
+        flat.update(_optimizers_to_numpy(system))
+    return flat
+
+
+def _param_entries(system):
+    """(module, parameter, path under ``params/<module>/``, layout) of
+    every parameter of a system."""
+    params = dict(system.named_parameters())
+    out = []
+    for key, flat_key, layout in entries(system):
+        if key in params:
+            _, module, path = flat_key.split("/", 2)
+            out.append((module, params[key], path, layout))
+    return out
+
+
+def _load_optimizers(system, flat, device):
+    """optax ``ScaleByAdamState`` (count, mu, nu) -> each optimizer's
+    per-parameter ``step``, ``exp_avg``, ``exp_avg_sq``."""
+    opts = system.optimizers
+    for opt in opts.values():
+        opt.state.clear()
+    for module, p, path, layout in _param_entries(system):
+        count = int(flat[f"opt_state/{module}/count"])
+        if count == 0:
+            continue
+        opts[module].state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": _to_torch(flat[f"opt_state/{module}/mu/{path}"], layout, device),
+            "exp_avg_sq": _to_torch(flat[f"opt_state/{module}/nu/{path}"], layout, device),
+        }
+
+
+def _optimizers_to_numpy(system) -> dict:
+    opts = system.optimizers
+    flat = {
+        f"opt_state/{m}/count": np.asarray(schedules.update_count(opt), np.int32)
+        for m, opt in opts.items()
+    }
+    for module, p, path, layout in _param_entries(system):
+        state = opts[module].state.get(p) or {}
+        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            t = state.get(key)
+            flat[f"opt_state/{module}/{name}/{path}"] = (
+                _to_flax(t, layout) if t is not None else _to_flax(torch.zeros_like(p), layout)
+            )
+    return flat
 
 
 def stage1_from_numpy(flat: dict, cfg, device=None) -> Stage1System:

@@ -4,10 +4,13 @@
 // (kernel body _fwd_kernel): per (batch row, head) it computes
 //   S = scale * Q K^T, key-padding mask filled with -3e7 (not -inf),
 //   m = rowmax(S), p = exp(S - m), l = rowsum(p),
+//   p *= keep / (1 - rate)          (attention-prob dropout, rate > 0),
 //   O = (p V) / l,
 // and writes O in the input dtype plus m and l in f32, kept apart (not as
-// a log-sum-exp) so a backward can recompute p with no reductions.
-// A fully masked row comes out uniform, as on the TPU.
+// a log-sum-exp) so the backward recomputes p with no reductions. l sums
+// p before dropout, as on the TPU. A fully masked row comes out uniform.
+// The keep-mask is the counter hash of attention_common.cuh, addressed by
+// (seed, batch row, head, query, key), so the backward replays it.
 //
 // Operands stay in the packed-head layout of the BERT Dense outputs:
 // q, k, v are (B, T, H) with H = heads * 64, head h in columns
@@ -20,7 +23,8 @@
 // and device memory sees q, k, v read once per query tile and o, m, l
 // written once. The products run on the FMA units in f32 (no tensor cores
 // yet) with one shared-memory load per FMA, so this first version is bound
-// by shared-memory loads feeding the FMAs, not by device memory.
+// by shared-memory loads feeding the FMAs, not by device memory. Dropout
+// adds about ten integer operations per score.
 //
 // Design: 128 threads per block. Phases 1 and 3 give each thread one
 // query row and 32 interleaved columns (2c + half), so the two threads of
@@ -31,56 +35,14 @@
 // shared memory is 66 KB at T = 128 and 165 KB at T = 512.
 //
 // Rounding follows the TPU kernel: products accumulate in f32, l sums the
-// unrounded p, and p is rounded to the dtype of v before p V.
+// unrounded p, and p (after dropout) is rounded to the dtype of v before
+// p V.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
-#include <stddef.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kTile = 64;       // query rows per block, keys per key tile
-constexpr int kThreads = 128;
-constexpr int kStride = kHeadDim + 1;  // shared-memory row stride of Q/K/V tiles
-constexpr int kCols = kTile / 2;       // columns each thread owns in a tile
-constexpr float kBigNeg = -3e7f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Rows [row0, row0 + kTile) of one head's (T, 64) slice into shared memory
-// as f32; rows at or past T read as zero. src points at (b, 0, 64 * head).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int seq, int hidden) {
-  for (int i = threadIdx.x; i < kTile * kHeadDim; i += kThreads) {
-    const int r = i / kHeadDim;
-    const int d = i % kHeadDim;
-    const int row = row0 + r;
-    dst[r * kStride + d] = row < seq ? to_f32(src[(size_t)row * hidden + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using namespace attn;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -88,7 +50,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ mask,
                      T* __restrict__ o, float* __restrict__ m_out,
                      float* __restrict__ l_out, int seq, int hidden, int heads,
-                     float scale) {
+                     float scale, Dropout dr) {
   extern __shared__ float smem[];
   const int s_stride = seq + 1;           // odd: score rows in distinct banks
   float* qs = smem;                       // kTile x kStride
@@ -101,6 +63,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const size_t base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
   const int* mrow = mask ? mask + (size_t)b * seq : nullptr;
+  const unsigned salt = dropout_salt(dr.seed, b, head);
 
   const int tid = threadIdx.x;
   const int row = tid >> 1;   // query row of the tile this thread owns
@@ -133,7 +96,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // Phase 2: one warp per row: m = max, p = exp(S - m), l = sum(p).
+  // Phase 2: one warp per row: m = max, p = exp(S - m), l = sum(p), then
+  // the dropout keep-mask on p.
   const int warp = tid >> 5;
   const int lane = tid & 31;
   for (int r = warp; r < kTile; r += kThreads / 32) {
@@ -143,8 +107,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < seq; j += 32) {
-      const float p = expf(sr[j] - mx);
+      float p = expf(sr[j] - mx);
       sum += p;
+      if (dr.on) p *= keep_scale(dr, salt, q0 + r, j);
       sr[j] = round_as(p, T());
     }
     sum = warp_sum(sum);
@@ -186,7 +151,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* o,
            void* m, void* l, int batch, int seq, int hidden, int heads, float scale,
-           cudaStream_t stream) {
+           Dropout dr, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)2 * kTile * kStride + (size_t)kTile * (seq + 1) + kTile);
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T>,
@@ -197,24 +162,28 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(mask), static_cast<T*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), seq, hidden, heads, scale);
+      static_cast<float*>(l), seq, hidden, heads, scale, dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point. dtype: 0 = float32, 1 = bfloat16 (q, k, v and o).
-// mask is (B, T) int32 with 1 = keep, or null. Shapes are checked by the
-// Python wrapper: head dim 64, 0 < T <= 512. Returns the CUDA error
-// code of the launch (0 on success).
+// mask is (B, T) int32 with 1 = keep, or null. dropout = 0 turns the
+// keep-mask off; otherwise keep iff hash >= thresh, kept p scaled by
+// inv_keep. Shapes are checked by the Python wrapper: head dim 64,
+// 0 < T <= 512. Returns the CUDA error code of the launch (0 on success).
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* m, void* l,
                              int batch, int seq, int hidden, int heads,
-                             int dtype, float scale, void* stream) {
+                             int dtype, float scale, int dropout, int seed,
+                             unsigned thresh, float inv_keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dr{dropout, seed, thresh, inv_keep};
   if (dtype == 0)
-    return launch<float>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, st);
+    return launch<float>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }

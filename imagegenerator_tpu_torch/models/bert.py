@@ -4,8 +4,13 @@
 ``BertEncoder`` uses HuggingFace ``BertModel``'s submodule names
 (``embeddings.word_embeddings``, ``encoder.layer.N.attention.self.query``,
 ``attention.output.LayerNorm``, ...), so an HF SpanBERT/BERT
-``state_dict`` loads with ``load_state_dict``. It runs in inference mode
-(no dropout).
+``state_dict`` loads with ``load_state_dict``. ``deterministic=True``
+(the default) runs it in inference mode; ``deterministic=False`` is the
+training forward of the stage-1 step, with dropout at every site of the
+JAX encoder, in its order: the embeddings (after the LayerNorm, before
+the dtype cast), the attention probabilities (inside the kernel with
+``fused_attention``), after the attention-out Dense and after the output
+Dense.
 
 Dtype flow, as in the JAX encoder: embeddings are summed in f32 and
 normalised in f32, the result is cast to the compute dtype before layer
@@ -24,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagegenerator_tpu_torch.ops.dropout import bits_dropout, dropout
+from imagegenerator_tpu_torch.ops.gelu import gelu_exact_output_bwd
 from imagegenerator_tpu_torch.ops.kernels import attention as attn_kernel
 from imagegenerator_tpu_torch.ops.kernels import layernorm as ln_kernel
 from imagegenerator_tpu_torch.ops.layers import Dense
@@ -32,8 +39,9 @@ from imagegenerator_tpu_torch.ops.layers import Dense
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     """Same fields and defaults as the JAX package's ``BertConfig``.
-    ``dropout_rate``, ``dropout_bits`` and ``gelu_output_bwd`` only act in
-    training, which this package does not run yet."""
+    ``dropout_rate`` and ``dropout_bits`` act in the training forward
+    (``deterministic=False``); ``gelu_output_bwd`` changes only the
+    backward."""
 
     vocab_size: int = 28996
     hidden_size: int = 768
@@ -63,8 +71,11 @@ class BertConfig:
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with f32 statistics and two-pass variance (parameters
-    ``weight``/``bias``, HF's names). ``fused`` takes the kernel."""
+    """LayerNorm with f32 statistics (parameters ``weight``/``bias``, HF's
+    names). ``fused`` takes the kernel, whose variance is two-pass as on
+    the TPU; otherwise flax ``nn.LayerNorm``'s formula: the fast variance
+    ``max(E[x^2] - E[x]^2, 0)``, ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, output ``promote(x, f32)``."""
 
     def __init__(self, d, eps, fused=False, *, device=None):
         super().__init__()
@@ -75,9 +86,23 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         if self.fused:
             return ln_kernel.fused_layernorm(x, self.weight, self.bias, self.eps)
-        shape = x.shape
-        x2 = x.reshape(-1, shape[-1])
-        return ln_kernel.layernorm_reference(x2, self.weight, self.bias, self.eps)[0].reshape(shape)
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def _dropout(cfg: BertConfig, x, deterministic: bool, generator):
+    """A hidden, embedding or (unfused) attention-prob dropout site:
+    ``nn.Dropout`` at the 32-bit default, ``bits_dropout`` at
+    ``dropout_bits`` 16 or 8."""
+    if deterministic:
+        return x
+    if cfg.dropout_bits != 32:
+        return bits_dropout(x, cfg.dropout_rate, cfg.dropout_bits, generator)
+    return dropout(x, cfg.dropout_rate, generator)
 
 
 def _embedding(n, d, device, generator):
@@ -120,9 +145,12 @@ class _Attention(nn.Module):
         self.self = _SelfAttentionProj(cfg.hidden_size, dtype, kw)
         self.output = _DenseLN(cfg.hidden_size, cfg.hidden_size, cfg, dtype, kw)
 
-    def context(self, x, mask):
+    def context(self, x, mask, deterministic=True, generator=None, host_generator=None):
         """Attention context before the output Dense, as the JAX
-        ``_SelfAttention`` computes it on either path."""
+        ``_SelfAttention`` computes it on either path. With dropout on,
+        the fused kernel's int32 seed is drawn from ``host_generator`` (a
+        CPU generator, so the draw needs no device-to-host sync, or an
+        iterator of seeds), the unfused path's mask from ``generator``."""
         cfg = self.cfg
         B, T, h = x.shape
         nh = cfg.num_heads
@@ -130,7 +158,20 @@ class _Attention(nn.Module):
         # On the card the kernel takes the call or raises; only a CPU
         # tensor falls back to einsum off the JAX package's shapes.
         if cfg.fused_attention and (q.is_cuda or attn_kernel.supported(T, h, nh)):
-            return attn_kernel.fused_attention(q, k, v, mask, num_heads=nh)
+            rate, seed = (0.0 if deterministic else cfg.dropout_rate), 0
+            if rate > 0.0:
+                if host_generator is None:
+                    raise ValueError(
+                        "BERT: fused attention with dropout draws its seed "
+                        "from host_generator, which is None"
+                    )
+                if isinstance(host_generator, torch.Generator):
+                    seed = int(torch.randint(-2**31, 2**31, (), generator=host_generator))
+                else:
+                    seed = next(host_generator)
+            return attn_kernel.fused_attention(
+                q, k, v, mask, num_heads=nh, dropout_rate=rate, seed=seed
+            )
         hd = h // nh
         split = lambda t: t.reshape(B, T, nh, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", split(q).float(), split(k).float())
@@ -140,6 +181,7 @@ class _Attention(nn.Module):
                 mask[:, None, None, :] > 0, logits, torch.finfo(logits.dtype).min
             )
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        probs = _dropout(cfg, probs, deterministic, generator)
         dt = torch.promote_types(probs.dtype, v.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), split(v).to(dt))
         return ctx.reshape(B, T, h)
@@ -154,12 +196,18 @@ class _Layer(nn.Module):
         self.intermediate.dense = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, **kw)
         self.output = _DenseLN(cfg.intermediate_size, cfg.hidden_size, cfg, dtype, kw)
 
-    def forward(self, x, mask):
-        out = self.attention.output
-        x = out.LayerNorm(x + out.dense(self.attention.context(x, mask)))
-        approx = "tanh" if self.cfg.gelu_approximate else "none"
-        y = F.gelu(self.intermediate.dense(x), approximate=approx)
-        return self.output.LayerNorm(x + self.output.dense(y))
+    def forward(self, x, mask, deterministic=True, generator=None, host_generator=None):
+        cfg, out = self.cfg, self.attention.output
+        ctx = self.attention.context(x, mask, deterministic, generator, host_generator)
+        attn = _dropout(cfg, out.dense(ctx), deterministic, generator)
+        x = out.LayerNorm(x + attn)
+        y = self.intermediate.dense(x)
+        if cfg.gelu_output_bwd and not cfg.gelu_approximate:
+            y = gelu_exact_output_bwd(y)
+        else:
+            y = F.gelu(y, approximate="tanh" if cfg.gelu_approximate else "none")
+        y = _dropout(cfg, self.output.dense(y), deterministic, generator)
+        return self.output.LayerNorm(x + y)
 
 
 class BertEncoder(nn.Module):
@@ -175,7 +223,12 @@ class BertEncoder(nn.Module):
             [_Layer(config, dtype, kw) for _ in range(config.num_layers)]
         )
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic=True, generator=None, host_generator=None):
+        """``deterministic=False`` turns dropout on: masks drawn from
+        ``generator`` (on the ids' device), the fused attention's int32
+        seeds, one per layer, from ``host_generator``: a CPU
+        ``torch.Generator`` or an iterator of seeds."""
         T = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -186,11 +239,11 @@ class BertEncoder(nn.Module):
             + e.position_embeddings(pos)
             + e.token_type_embeddings(token_type_ids)
         )
-        x = e.LayerNorm(x)
+        x = _dropout(self.config, e.LayerNorm(x), deterministic, generator)
         if self.dtype is not None:
             x = x.to(self.dtype)
         for layer in self.encoder.layer:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, deterministic, generator, host_generator)
         return x
 
 

@@ -1,6 +1,7 @@
-"""StackGAN Stage-I / Stage-II generators — counterpart of
-``imagegenerator_tpu/models/stackgan.py`` (eval and train mode; the
-discriminators are not ported yet).
+"""StackGAN Stage-I / Stage-II generators and the Stage-I discriminator
+— counterpart of ``imagegenerator_tpu/models/stackgan.py`` (eval and
+train mode; the Stage-II discriminator waits for the stage-2 training
+slice).
 
 Both generators take and return images NHWC ``(B, H, W, 3)`` in [-1, 1],
 the JAX package's layout, and run NCHW inside: a permute of an NHWC
@@ -20,6 +21,7 @@ from imagegenerator_tpu_torch.ops.layers import (
     BatchNorm,
     Conv2d,
     ConvTranspose2d,
+    Dense,
     DownBlock,
     UpBlock,
 )
@@ -48,6 +50,61 @@ class StageIGenerator(nn.Module):
         for i in range(self.n_up):
             x = getattr(self, f"UpBlock_{i}")(x)
         return torch.tanh(self.ConvTranspose2d_0(x)).permute(0, 2, 3, 1)
+
+
+class _TextImageCriticHead(nn.Module):
+    """The critic's stateless head: ``Dense(nd)`` on ``tem``, replicated
+    over the feature map and concatenated after the image channels, 1x1
+    conv to ``resize_ch``, flattened in NHWC (h, w, c) order as in JAX,
+    ``Dense(1)``. No BatchNorm, so one tower pass can be scored against
+    several text embeddings."""
+
+    def __init__(self, tem_size, nd, feat_ch, resize_ch=128, spatial=4,
+                 dtype=None, *, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.Dense_0 = Dense(tem_size, nd, **kw)
+        self.Conv2d_0 = Conv2d(feat_ch + nd, resize_ch, 1, 1, 0, **kw)
+        self.Dense_1 = Dense(resize_ch * spatial * spatial, 1, **kw)
+
+    def forward(self, feat, tem):
+        """feat NCHW ``(B, C, 4, 4)``, tem ``(B, tem_size)`` -> ``(B, 1)``."""
+        B, _, h, w = feat.shape
+        compressed = self.Dense_0(tem)
+        rep = compressed[:, :, None, None].expand(B, compressed.shape[1], h, w).to(feat.dtype)
+        x = self.Conv2d_0(torch.cat([feat, rep], dim=1))
+        return self.Dense_1(x.permute(0, 2, 3, 1).reshape(B, -1))
+
+
+class StageIDiscriminator(nn.Module):
+    """Conv(k4 s2 p1) + LeakyReLU(0.1) -> DownBlocks -> (B, 512, 4, 4)
+    image tower, then the text-image head. ``channels``: the stem conv,
+    then one DownBlock each; input resolution ``2**(len(channels) + 2)``.
+    Submodule names are flax's (``conv_in``, ``down_blocks_N``,
+    ``head``)."""
+
+    def __init__(self, tem_size=512, nd=128, channels=(64, 128, 256, 512),
+                 dtype=None, *, device=None, generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.conv_in = Conv2d(3, channels[0], 4, 2, 1, **kw)
+        self.n_down = len(channels) - 1
+        for i, (cin, cout) in enumerate(zip(channels, channels[1:])):
+            setattr(self, f"down_blocks_{i}", DownBlock(cin, cout, **kw))
+        self.head = _TextImageCriticHead(tem_size, nd, channels[-1], **kw)
+
+    def features(self, img):
+        """Image tower: NHWC ``(B, r, r, 3)`` -> NCHW ``(B, C, 4, 4)``."""
+        x = F.leaky_relu(self.conv_in(img.permute(0, 3, 1, 2)), 0.1)
+        for i in range(self.n_down):
+            x = getattr(self, f"down_blocks_{i}")(x)
+        return x
+
+    def score(self, feat, tem):
+        return self.head(feat, tem)
+
+    def forward(self, img, tem):
+        return self.score(self.features(img), tem)
 
 
 class ResidualBlock(nn.Module):

@@ -1,9 +1,14 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-* ``attention`` — fused multi-head attention forward, CUDA C++
-  (``csrc/attention_fwd.cu``), built by ``_build`` with ``nvcc``.
-* ``layernorm`` — row LayerNorm forward, Triton.
+* ``attention`` — fused multi-head attention forward (with
+  attention-prob dropout) and backward, CUDA C++
+  (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``), built by
+  ``_build`` with ``nvcc``; ``fused_attention`` is their
+  ``autograd.Function``.
+* ``layernorm`` — row LayerNorm forward and backward, Triton;
+  ``fused_layernorm`` is their ``autograd.Function``.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain
-version for a CPU tensor; each counts its launches in ``launches``.
+version for a CPU tensor; each counts its launches (``launches``,
+``bwd_launches``, and for attention ``dropout_launches``).
 """

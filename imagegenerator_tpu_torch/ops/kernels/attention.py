@@ -1,29 +1,36 @@
-"""Fused multi-head self-attention forward over packed heads.
+"""Fused multi-head self-attention over packed heads, forward and
+backward, with attention-prob dropout.
 
-Replaces ``imagegenerator_tpu/ops/pallas/attention.py::_pallas_fwd``
-(kernel ``_fwd_kernel``), which BERT reaches through ``fused_attention``
-when ``BertConfig.fused_attention`` is set. On a CUDA tensor the wrapper
-launches the hand-written kernel in ``csrc/attention_fwd.cu`` (CUDA C++
-for ``sm_90a``, built by ``_build``); on a CPU tensor it runs
-``attention_reference``, the plain PyTorch version of the same function.
+Replaces ``imagegenerator_tpu/ops/pallas/attention.py``: ``_pallas_fwd``
+(kernel ``_fwd_kernel``) and ``_pallas_bwd`` (kernel ``_bwd_kernel``),
+which BERT reaches through ``fused_attention`` when
+``BertConfig.fused_attention`` is set. On a CUDA tensor the wrappers
+launch the hand-written kernels in ``csrc/attention_fwd.cu`` and
+``csrc/attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by ``_build``);
+on a CPU tensor they run ``attention_reference`` and
+``attention_bwd_reference``, the plain PyTorch versions of the same
+functions. ``fused_attention`` is a ``torch.autograd.Function`` whose
+forward saves what the TPU custom VJP saves (q, k, v, mask, m, l).
 
-What bounds it on the card: at BERT's shapes (batch 8, T = 128) neither
-device memory nor the 0.4 GFLOP of products. The plain version spends
-its time in a dozen small kernels (casts, two matmuls, mask, softmax,
-divide) and, on the host, in launching them. The kernel does the whole
-forward in one launch and keeps each head's scores in shared memory (one
-block per batch row, head and 64-query tile), touching device memory
-only for q, k, v, o, m and l. Its products run on the FMA units with one
-shared-memory load per FMA, which bounds this first version; tensor
-cores are the next step (PERF.md).
+What bounds them on the card: not device memory, nor at BERT's shapes
+the products. The plain versions write and reread the (B, heads, T, T)
+scores and probabilities between a dozen small kernels each way. The
+kernels keep each head's (64, T) tile in shared memory, touch device
+memory only for q, k, v, do, o, m, l and the gradients, and run their
+products on the FMA units (tensor cores are later work, PERF.md).
 
-Numerics follow the TPU kernel: f32 products and sums, masked logits
+Numerics follow the TPU kernels: f32 products and sums, masked logits
 filled with -3e7 (so a fully masked row is uniform), ``(m, l)`` kept
-apart rather than as a log-sum-exp, probabilities rounded to v's dtype
-before ``p V``, and ``1 / l`` folded into the context.
+apart rather than as a log-sum-exp so the backward recomputes the
+probabilities with no reductions, probabilities rounded to v's dtype
+before ``p V``, ``1 / l`` folded into the context; in the backward ``pd``
+rounded to do's dtype before ``dv``, ``ds`` zero on masked key columns
+and rounded to q's dtype before ``dq`` and ``dk``.
 
-Dropout is not here: sampling runs attention at rate 0, and a non-zero
-rate raises ``NotImplementedError``.
+Dropout: the keep-mask is the JAX package's interpret-mode counter hash
+(``_hash_bits``, ``_keep_mask``), addressed by (seed, batch row, head,
+query, key), so forward, backward and the plain versions draw the same
+bits and no mask is stored. See ``keep_mask``.
 """
 
 from __future__ import annotations
@@ -40,10 +47,15 @@ BIG_NEG = -3e7
 HEAD_DIM = 64
 MAX_SEQ = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK32 = 0xFFFFFFFF
 
-# Kernel launches so far; the wrapper adds one per launch and nothing else
-# does. Set it to 0 to count a run.
+# Kernel launches so far; the wrappers add one per launch and nothing
+# else does. ``launches`` counts forward launches at any rate,
+# ``dropout_launches`` those of them with dropout on, ``bwd_launches``
+# backward launches. Set them to 0 to count a run.
 launches = 0
+dropout_launches = 0
+bwd_launches = 0
 
 
 def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
@@ -56,39 +68,139 @@ def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
     return hidden % num_heads == 0 and seq_len % 8 == 0 and hd % 8 == 0 and hd >= 8
 
 
-def attention_reference(q, k, v, mask, num_heads: int):
-    """Plain PyTorch version. q/k/v ``(B, T, H)``; mask ``(B, T)`` int
+# ---------------------------------------------------------------- dropout
+
+
+def threshold(rate: float) -> int:
+    """Keep iff ``bits >= threshold(rate)``, as ``_keep_mask`` sets it."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), in two 16-bit
+    halves of ``c`` so no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _finalize(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_mask(batch: int, num_heads: int, seq: int, seed: int, rate: float, device=None):
+    """The dropout keep-mask ``(B, heads, T, T)`` bool, [row, head, query,
+    key]: the uint32 counter hash of ``attention_common.cuh`` computed in
+    int64, masked to 32 bits after every multiply and add."""
+    dev = dict(dtype=torch.int64, device=device)
+    b = torch.arange(batch, **dev)[:, None]
+    h = torch.arange(num_heads, **dev)[None, :]
+    salt = (seed + b * 1000003 + h * 7919) & _MASK32  # wrapping int32 -> uint32
+    r = torch.arange(seq, **dev)[:, None]
+    c = torch.arange(seq, **dev)[None, :]
+    rc = (_mul32(r, 0x9E3779B9) + _mul32(c, 0x85EBCA6B)) & _MASK32
+    x = (rc + _mul32(salt, 0xC2B2AE35)[:, :, None, None]) & _MASK32
+    return _finalize(x) >= threshold(rate)
+
+
+def _keep_scale(q, num_heads, rate, seed):
+    """``keep * 1 / (1 - rate)`` as f32, or None at rate 0."""
+    if rate <= 0.0:
+        return None
+    B, T, _ = q.shape
+    keep = keep_mask(B, num_heads, T, seed, rate, q.device)
+    return keep.float() * (1.0 / (1.0 - rate))
+
+
+def _dropout_args(rate: float, seed: int):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention: dropout rate {rate} (need 0 <= rate < 1)")
+    if rate == 0.0:
+        return 0, 0, 0, 1.0
+    seed = ((int(seed) + 2**31) % 2**32) - 2**31  # as int32
+    return 1, seed, threshold(rate), 1.0 / (1.0 - rate)
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def _heads(t, num_heads):
+    B, T, H = t.shape
+    return t.reshape(B, T, num_heads, H // num_heads).float()
+
+
+def _scores(q, k, mask, num_heads):
+    hd = q.shape[2] // num_heads
+    s = torch.einsum("bqhd,bkhd->bhqk", _heads(q, num_heads), _heads(k, num_heads))
+    s = s * (1.0 / math.sqrt(hd))
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :] > 0, s, BIG_NEG)
+    return s
+
+
+def attention_reference(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch forward. q/k/v ``(B, T, H)``; mask ``(B, T)`` int
     (1 = keep) or None. Returns ``o (B, T, H)`` in q's dtype and
     ``m, l (B, heads, T)`` f32."""
     B, T, H = q.shape
-    hd = H // num_heads
-    qh = q.reshape(B, T, num_heads, hd).float()
-    kh = k.reshape(B, T, num_heads, hd).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / math.sqrt(hd))
-    if mask is not None:
-        s = torch.where(mask[:, None, None, :] > 0, s, BIG_NEG)
+    s = _scores(q, k, mask, num_heads)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    vh = v.reshape(B, T, num_heads, hd).float()
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vh)
+    keep = _keep_scale(q, num_heads, rate, seed)
+    if keep is not None:
+        p = p * keep
+    ctx = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), _heads(v, num_heads))
     o = ctx / l.permute(0, 2, 1, 3)
     return o.reshape(B, T, H).to(q.dtype), m[..., 0], l[..., 0]
 
 
+def attention_bwd_reference(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0,
+                            seed: int = 0):
+    """Plain PyTorch backward, ``_bwd_kernel``'s math: ``(dq, dk, dv)`` in
+    q's dtype from q/k/v/do ``(B, T, H)`` (do in q's dtype), mask, and the
+    forward's ``m, l (B, heads, T)``."""
+    B, T, H = q.shape
+    scale = 1.0 / math.sqrt(H // num_heads)
+    probs = torch.exp(_scores(q, k, mask, num_heads) - m[..., None]) * (1.0 / l)[..., None]
+    keep = _keep_scale(q, num_heads, rate, seed)
+    pd = probs if keep is None else probs * keep
+    do_h = _heads(do, num_heads)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd.to(do.dtype).float(), do_h)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do_h, _heads(v, num_heads))
+    if keep is not None:
+        dp = dp * keep
+    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))
+    if mask is not None:
+        ds = torch.where(mask[:, None, None, :] > 0, ds, 0.0)
+    ds = (ds * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _heads(k, num_heads))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _heads(q, num_heads))
+    return tuple(t.reshape(B, T, H).to(q.dtype) for t in (dq, dk, dv))
+
+
+# ------------------------------------------------------------------ kernels
+
+
 @functools.cache
-def _entry():
-    fn = _build.library().attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p,
+def _entry(name):
+    fn = getattr(_build.library(name), name)
+    n_ptr = 7 if name == "attention_fwd" else 11
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda(q, k, v, mask, num_heads):
+def _check_cuda(q, others, mask, num_heads):
     B, T, H = q.shape
-    for name, t in (("k", k), ("v", v)):
+    for name, t in others:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(
                 f"attention: {name} is {tuple(t.shape)} {t.dtype} on "
@@ -96,8 +208,8 @@ def _check_cuda(q, k, v, mask, num_heads):
             )
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {q.dtype} (kernel takes f32, bf16)")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("attention: q, k and v must be contiguous")
+    if not q.is_contiguous() or not all(t.is_contiguous() for _, t in others):
+        raise ValueError("attention: q, k, v (and do) must be contiguous")
     if H % num_heads or H // num_heads != HEAD_DIM:
         raise ValueError(
             f"attention: hidden {H} / {num_heads} heads; kernel takes "
@@ -117,41 +229,97 @@ def _check_cuda(q, k, v, mask, num_heads):
         )
 
 
-def attention_fwd(q, k, v, mask, num_heads: int):
+def _check_stats(q, m, l, num_heads):
+    B, T, _ = q.shape
+    for name, t in (("m", m), ("l", l)):
+        if (t.shape != (B, num_heads, T) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(
+                f"attention: {name} must be contiguous f32 ({B}, {num_heads}, {T})"
+            )
+
+
+def _device(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: no kernel for device {q.device}")
+    return q.device.type
+
+
+def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 0):
     """``(o, m, l)`` of the forward, the outputs of ``_pallas_fwd``:
     the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, mask, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {q.device}")
-    _check_cuda(q, k, v, mask, num_heads)
-    global launches
+    drop = _dropout_args(rate, seed)
+    if _device(q) == "cpu":
+        return attention_reference(q, k, v, mask, num_heads, rate, seed)
+    _check_cuda(q, (("k", k), ("v", v)), mask, num_heads)
+    global launches, dropout_launches
     B, T, H = q.shape
     o = torch.empty_like(q)
     m = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     with torch.cuda.device(q.device):
-        rc = _entry()(
+        rc = _entry("attention_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
+            B, T, H, num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_fwd")
     launches += 1
+    dropout_launches += drop[0]
     return o, m, l
 
 
-def fused_attention(q, k, v, mask, *, num_heads: int, dropout_rate: float = 0.0):
-    """Multi-head attention over packed heads: q/k/v ``(B, T, H)`` raw
-    Dense outputs, mask ``(B, T)`` (1 = keep) or None. Returns the
-    ``(B, T, H)`` context in q's dtype."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "fused_attention: dropout is not ported yet (sampling runs "
-            "attention at rate 0)"
+def attention_bwd(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0, seed: int = 0):
+    """``(dq, dk, dv)`` of the backward, the outputs of ``_pallas_bwd``,
+    from the forward's inputs, ``do`` in q's dtype and its ``(m, l)``:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    drop = _dropout_args(rate, seed)
+    if _device(q) == "cpu":
+        return attention_bwd_reference(q, k, v, do, mask, m, l, num_heads, rate, seed)
+    _check_cuda(q, (("k", k), ("v", v), ("do", do)), mask, num_heads)
+    _check_stats(q, m, l, num_heads)
+    global bwd_launches
+    B, T, H = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    d_row = torch.empty_like(m)  # the row term D, written by the first launch
+    with torch.cuda.device(q.device):
+        rc = _entry("attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            d_row.data_ptr(),
+            B, T, H, num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *drop,
+            torch.cuda.current_stream().cuda_stream,
         )
+    _build.check(rc, "attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_heads, rate, seed):
+        o, m, l = attention_fwd(q, k, v, mask, num_heads, rate, seed)
+        ctx.save_for_backward(q, k, v, mask, m, l)
+        ctx.args = (num_heads, rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, m, l = ctx.saved_tensors
+        grads = attention_bwd(q, k, v, do.to(q.dtype).contiguous(), mask, m, l, *ctx.args)
+        return (*grads, None, None, None, None)
+
+
+def fused_attention(q, k, v, mask, *, num_heads: int, dropout_rate: float = 0.0,
+                    seed: int = 0):
+    """Multi-head attention over packed heads: q/k/v ``(B, T, H)`` raw
+    Dense outputs, mask ``(B, T)`` (1 = keep) or None, attention-prob
+    dropout at ``dropout_rate`` with the keep-mask of ``seed`` (an int32,
+    ignored at rate 0). Returns the ``(B, T, H)`` context in q's dtype,
+    differentiable in q, k and v."""
     if mask is not None:
         mask = mask.to(torch.int32).contiguous()
-    return attention_fwd(q, k, v, mask, num_heads)[0]
+    return _FusedAttention.apply(q, k, v, mask, num_heads, float(dropout_rate), int(seed))

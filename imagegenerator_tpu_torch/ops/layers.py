@@ -90,9 +90,11 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """torch ``nn.BatchNorm2d`` semantics over NCHW channels: eps 1e-5,
-    momentum 0.1 (flax's 0.9). As in flax, training mode normalises with
-    the biased batch variance and also folds that biased variance into
-    ``running_var``. Output dtype is ``dtype``, or ``promote(x, f32)``."""
+    momentum 0.1 (flax's 0.9). As in flax's ``nn.BatchNorm``, training
+    mode takes the biased batch variance by flax's fast formula,
+    ``max(E[x^2] - E[x]^2, 0)`` in f32 over (N, H, W), normalises with it
+    and folds it into ``running_var`` as ``0.9 * old + 0.1 * batch``.
+    Output dtype is ``dtype``, or ``promote(x, f32)``."""
 
     eps = 1e-5
     momentum = 0.1
@@ -110,10 +112,12 @@ class BatchNorm(nn.Module):
         out_dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
         xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
             with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var + self.momentum * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

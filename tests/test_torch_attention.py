@@ -1,12 +1,17 @@
-"""The port's attention forward (``ops/kernels/attention.py``) on the CPU:
-its plain version against the JAX package's Pallas forward
-``_pallas_fwd`` run in interpret mode, output by output (o, m, l); and
-the wrapper's contract (a CPU tensor takes the plain version and counts
-no launch). The CUDA kernel itself is held to the plain version on the
-card by ``chip_smoke.py``.
+"""The port's attention (``ops/kernels/attention.py``) on the CPU: the
+plain forward against the JAX package's Pallas forward ``_pallas_fwd``
+run in interpret mode, output by output (o, m, l); with dropout, the
+keep-mask bit for bit against the interpret-mode ``_keep_mask`` and the
+output and its vjp (dq, dk, dv) against JAX ``fused_attention(...,
+interpret=True)`` with the same seed, with and without a mask and with a
+fully masked row; and the wrappers' contract (a CPU tensor takes the
+plain version and counts no launch). The CUDA kernels themselves are
+held to the plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_kernels_cuda.py``.
 
 Tolerance: rtol = atol = 1e-5 (plain version of a kernel)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,16 +92,84 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     assert torch.equal(o, want)
 
 
-def test_dropout_is_not_ported():
-    q = torch.zeros(1, 8, 64)
-    with pytest.raises(NotImplementedError):
-        attention.fused_attention(q, q, q, None, num_heads=1, dropout_rate=0.1)
+@pytest.mark.parametrize("seed", [0, 123456789, -987654321, 2**31 - 1])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_keep_mask_is_the_interpret_mode_hash_bit_for_bit(rate, seed):
+    B, nh, T = 3, 4, 24
+    got = attention.keep_mask(B, nh, T, seed, rate).numpy()
+    seed_ref = jnp.asarray([seed, 0, 0], jnp.int32)
+    for b in range(B):
+        for h in range(nh):
+            want = jattn._keep_mask((T, T), rate, False, seed_ref, b, 1, 0, h)
+            np.testing.assert_array_equal(got[b, h], np.asarray(want) > 0, err_msg=f"row {b} head {h}")
+    assert abs(got.mean() - (1 - rate)) < 0.05
+
+
+def test_keep_rate_and_threshold():
+    keep = attention.keep_mask(8, 12, 128, 7, 0.1)
+    assert abs(keep.float().mean().item() - 0.9) < 0.002
+    assert attention.threshold(0.1) == int(0.1 * 2**32)
+    assert attention.threshold(1.0) == 2**32 - 1
+
+
+def _jax_attention(q, k, v, mask, nh, rate, seed):
+    t = lambda a: jnp.asarray(a)
+    fn = lambda q, k, v: jattn.fused_attention(
+        q, k, v, None if mask is None else t(mask), jnp.asarray([seed], jnp.int32),
+        num_heads=nh, dropout_rate=rate, interpret=True)
+    return jax.vjp(fn, t(q), t(k), t(v))
+
+
+@pytest.mark.parametrize("mask_kind", ["ragged", "fully_masked_row", None])
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 42), (0.5, -7)])
+def test_dropout_forward_and_vjp_match_jax(rate, seed, mask_kind):
+    B, T, H, nh = 3, 16, 128, 2
+    q, k, v, mask = _inputs(B, T, H, mask_kind, seed=3)
+    do = np.random.default_rng(4).standard_normal((B, T, H)).astype(np.float32)
+    want, vjp = _jax_attention(q, k, v, mask, nh, rate, seed)
+    want_grads = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    mt = None if mask is None else torch.from_numpy(mask)
+    got = attention.fused_attention(qt, kt, vt, mt, num_heads=nh, dropout_rate=rate, seed=seed)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    got.backward(torch.from_numpy(do))
+    for name, g, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    if mask_kind == "fully_masked_row":  # no gradient reaches a row's masked logits
+        assert not qt.grad[-1].any() and not kt.grad[-1].any()
+
+
+def test_dropout_masks_differ_by_seed_and_replay_in_the_backward():
+    q, k, v, mask = map(torch.from_numpy, _inputs(2, 16, 64, "ragged"))
+    a, m, l = attention.attention_reference(q, k, v, mask, 1, 0.3, 1)
+    b = attention.attention_reference(q, k, v, mask, 1, 0.3, 2)[0]
+    assert not torch.equal(a, b)
+    assert torch.equal(a, attention.attention_fwd(q, k, v, mask, 1, 0.3, 1)[0])
+    # the statistics are taken before dropout, as on the TPU
+    _, m0, l0 = attention.attention_reference(q, k, v, mask, 1)
+    assert torch.equal(m, m0) and torch.equal(l, l0)
+    with pytest.raises(ValueError, match="rate"):
+        attention.attention_fwd(q, k, v, mask, 1, 1.0, 1)
+
+
+def test_bwd_wrapper_takes_the_plain_version_on_cpu():
+    q, k, v, mask = map(torch.from_numpy, _inputs(2, 16, 64, "ragged"))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    _, m, l = attention.attention_fwd(q, k, v, mask, 1, 0.2, 5)
+    attention.bwd_launches = 0
+    got = attention.attention_bwd(q, k, v, do, mask, m, l, 1, 0.2, 5)
+    assert attention.bwd_launches == 0
+    want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, 1, 0.2, 5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_no_kernel_for_other_devices():
     q = torch.zeros(1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         attention.attention_fwd(q, q, q, None, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        attention.attention_bwd(q, q, q, q, None, q, q, 1)
 
 
 @pytest.mark.parametrize("T", [8, 12, 128])

@@ -21,7 +21,7 @@ from imagegenerator_tpu_torch import convert
 from imagegenerator_tpu_torch.data.tokenizer import HashTokenizer
 from imagegenerator_tpu_torch.models import bert as tbert
 from tests.test_bert_convert import THFBert
-from tests.test_torch_layers import flat_variables
+from tests.test_torch_layers import flat_variables, grid_input
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -61,6 +61,37 @@ def test_encoder_matches_jax(name, fused_attention, fused_ln):
     with torch.no_grad():
         got = enc(torch.from_numpy(ids), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shift,step", [(0.0, None), (30.0, 0.125)])
+def test_unfused_layernorm_is_flax_layernorm(shift, step, dtype):
+    """Without fused_ln, BERT's LayerNorm is flax nn.LayerNorm's formula
+    (fast variance), not the kernel's two-pass one. At shift 30 the input
+    is on a grid whose sums are exact in f32 (see
+    ``test_torch_layers.grid_input``), where the two-pass formula reads
+    1.7e-4."""
+    from flax import linen as fnn
+
+    rng = np.random.default_rng(9)
+    if step is None:
+        x = (rng.standard_normal((6, 5, 64)) * 0.5 + shift).astype(np.float32)
+    else:
+        x = grid_input((6, 5, 64), shift, step, 9)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    xj = jnp.asarray(x, jdt)
+    ln = fnn.LayerNorm(epsilon=1e-12)
+    variables = ln.init(jax.random.key(0), xj)
+    variables = {"params": {"scale": jnp.asarray(1 + 0.1 * rng.standard_normal(64), jnp.float32),
+                            "bias": jnp.asarray(0.1 * rng.standard_normal(64), jnp.float32)}}
+    want = ln.apply(variables, xj)
+    port = tbert.LayerNorm(64, 1e-12)
+    with torch.no_grad():
+        port.weight.copy_(torch.from_numpy(np.asarray(variables["params"]["scale"])))
+        port.bias.copy_(torch.from_numpy(np.asarray(variables["params"]["bias"])))
+        got = port(torch.from_numpy(np.array(xj, np.float32)).to(tdt))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_bf16_residual_stream_is_f32_after_layer_0():

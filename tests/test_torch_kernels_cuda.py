@@ -1,9 +1,13 @@
 """The port's hand-written kernels against their plain versions on a CUDA
 card: the attention forward (CUDA C++) over the sequence lengths it
-takes, up to 512, and the LayerNorm forward (Triton) over widths, row
-counts and dtypes; the wrappers' launch counts and refusals; and the BERT
-encoder with the kernels on against off. Marked ``cuda``: skipped where
-there is no card. On a card, from the repository root:
+takes, up to 512, with and without dropout (keep-rate read back); the
+attention backward (CUDA C++) with and without mask and dropout; the
+LayerNorm forward and backward (Triton) over widths, row counts and
+dtypes; the ``autograd.Function``s against PyTorch's autograd through the
+plain forwards; the wrappers' launch counts and refusals; and the BERT
+encoder with the kernels on against off, forward and backward. Marked
+``cuda``: skipped where there is no card. On a card, from the repository
+root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
@@ -11,8 +15,11 @@ there is no card. On a card, from the repository root:
 machine need not have; these tests import only PyTorch and the port.)
 
 Tolerances as in ``chip_smoke.py``: attention o rtol 1e-4 / atol 1e-5 in
-f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4; LayerNorm y rtol = atol
-= 1e-5, mean and rstd rtol 1e-5."""
+f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4; attention gradients
+rtol 1e-3 / atol 1e-4 in f32 and 2e-2 / 2e-2 in bf16; LayerNorm y rtol =
+atol = 1e-5, mean and rstd rtol 1e-5, dx rtol = atol = 1e-4 (f32),
+dgamma and dbeta rtol 1e-4 / atol 1e-3 (sums over the rows in another
+order)."""
 
 import dataclasses
 
@@ -78,9 +85,87 @@ def test_attention_wrapper_refuses(gen, shape, nh, dtype, mask_dtype):
         attention.attention_fwd(q, q, q, mask, nh)
     with pytest.raises(ValueError):
         attention.attention_fwd(q.transpose(0, 1), q, q, None, nh)
-    with pytest.raises(NotImplementedError):
-        attention.fused_attention(q, q, q, None, num_heads=nh, dropout_rate=0.1)
-    assert attention.launches == 0
+    with pytest.raises((ValueError, TypeError)):
+        attention.attention_bwd(q, q, q, q, mask, q[:, :1], q[:, :1], nh)
+    attention.bwd_launches = 0
+    assert attention.launches == 0 and attention.bwd_launches == 0
+
+
+def test_attention_wrappers_refuse_bad_rate_and_stats(gen):
+    q = torch.zeros((2, 16, 768), device="cuda")
+    stat = torch.zeros((2, 12, 16), device="cuda")
+    attention.launches = attention.bwd_launches = 0
+    with pytest.raises(ValueError, match="rate"):
+        attention.attention_fwd(q, q, q, None, 12, 1.0, 0)
+    with pytest.raises(ValueError, match="m must"):
+        attention.attention_bwd(q, q, q, q, None, stat[:, :6], stat, 12)
+    with pytest.raises(ValueError, match="l must"):
+        attention.attention_bwd(q, q, q, q, None, stat, stat.double(), 12)
+    with pytest.raises(ValueError):
+        attention.attention_bwd(q, q, q, q.bfloat16(), None, stat, stat, 12)
+    assert attention.launches == 0 and attention.bwd_launches == 0
+
+
+GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_attention_dropout_forward_matches_plain(gen, rate):
+    B, T, H, nh = 16, 128, 768, 12
+    q, k, v = (torch.randn((B, T, H), generator=gen, device="cuda") for _ in range(3))
+    mask = _mask(B, T)
+    attention.launches = attention.dropout_launches = 0
+    o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, 1234)
+    torch.cuda.synchronize()
+    assert attention.launches == attention.dropout_launches == 1
+    ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, 1234)
+    torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=0)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    keep = attention.keep_mask(B, nh, T, 1234, rate, "cuda").float().mean().item()
+    assert abs(keep - (1 - rate)) < 0.005
+    # the same seed gives the same output; another seed another
+    assert torch.equal(o, attention.attention_fwd(q, k, v, mask, nh, rate, 1234)[0])
+    assert not torch.equal(o, attention.attention_fwd(q, k, v, mask, nh, rate, 1235)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,with_mask", [(8, 128, True), (4, 128, False), (3, 77, True),
+                                           (2, 1, False), (2, 512, True), (3, 40, True)])
+def test_attention_backward_matches_plain(gen, B, T, with_mask, rate, dtype):
+    H, nh = 768, 12
+    q, k, v, do = (torch.randn((B, T, H), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    mask = _mask(B, T) if with_mask else None
+    _, m, l = attention.attention_reference(q, k, v, mask, nh, rate, 99)
+    attention.bwd_launches = 0
+    got = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, 99)
+    torch.cuda.synchronize()
+    assert attention.bwd_launches == 1
+    want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, 99)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), w.float(), msg=name, **GRAD_TOL[dtype])
+    if with_mask:  # the fully masked last row gets no dq, dk
+        assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_function_against_autograd_of_plain(gen, rate):
+    """The autograd.Function (kernels both ways) against PyTorch's own
+    autograd through the plain forward, whose keep-mask is a constant."""
+    B, T, H, nh = 4, 96, 768, 12
+    leaves = [torch.randn((B, T, H), generator=gen, device="cuda", requires_grad=True) for _ in range(3)]
+    mask = _mask(B, T)
+    do = torch.randn((B, T, H), generator=gen, device="cuda")
+    attention.launches = attention.bwd_launches = 0
+    attention.fused_attention(*leaves, mask, num_heads=nh, dropout_rate=rate, seed=5).backward(do)
+    assert (attention.launches, attention.bwd_launches) == (1, 1)
+    got = [t.grad for t in leaves]
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    attention.attention_reference(*plain, mask, nh, rate, 5)[0].backward(do)
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        torch.testing.assert_close(g, p.grad, msg=name, **GRAD_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -102,6 +187,41 @@ def test_layernorm_kernel_matches_plain(gen, n, d, x_dtype, w_dtype):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 64), (7, 100), (1000, 768), (32768, 768), (33, 1000), (130, 4096)])
+def test_layernorm_backward_matches_plain(gen, n, d, x_dtype):
+    x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(x_dtype)
+    dy = torch.randn((n, d), generator=gen, device="cuda")
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    _, mean, rstd = layernorm.layernorm_reference(x, scale, bias, 1e-12)
+    layernorm.bwd_launches = 0
+    got = layernorm.layernorm_bwd(dy, x, mean, rstd, scale, bias)
+    torch.cuda.synchronize()
+    assert layernorm.bwd_launches == 1
+    want = layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, bias)
+    assert got[0].dtype == x_dtype and got[1].dtype == got[2].dtype == torch.float32
+    tol = dict(rtol=1e-4, atol=1e-4) if x_dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got[0], want[0], msg="dx", **tol)
+    for name, g, w in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, msg=name, rtol=1e-4, atol=1e-3)
+
+
+def test_layernorm_function_against_autograd_of_plain(gen):
+    x = (torch.randn((512, 768), generator=gen, device="cuda") * 2).requires_grad_(True)
+    scale = (1 + 0.1 * torch.randn((768,), generator=gen, device="cuda")).requires_grad_(True)
+    bias = (0.1 * torch.randn((768,), generator=gen, device="cuda")).requires_grad_(True)
+    dy = torch.randn((512, 768), generator=gen, device="cuda")
+    layernorm.launches = layernorm.bwd_launches = 0
+    layernorm.fused_layernorm(x, scale, bias).backward(dy)
+    assert (layernorm.launches, layernorm.bwd_launches) == (1, 1)
+    got = [t.grad for t in (x, scale, bias)]
+    plain = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
+    layernorm.layernorm_reference(*plain, 1e-12)[0].backward(dy)
+    for name, g, p in zip(("dx", "dgamma", "dbeta"), got, plain):
+        torch.testing.assert_close(g, p.grad, msg=name, rtol=1e-4, atol=1e-3)
+
+
 def test_layernorm_wrapper_refuses(gen):
     x = torch.zeros((8, 64), device="cuda")
     with pytest.raises(ValueError):
@@ -110,6 +230,13 @@ def test_layernorm_wrapper_refuses(gen):
         layernorm.layernorm_fwd(x, torch.ones(64), torch.zeros(64), 1e-12)
     with pytest.raises(ValueError):
         layernorm.layernorm_fwd(x.long(), torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 1e-12)
+    w, stat = torch.ones(64, device="cuda"), torch.zeros((8, 1), device="cuda")
+    layernorm.bwd_launches = 0
+    with pytest.raises(ValueError, match="dy"):
+        layernorm.layernorm_bwd(x[:4], x, stat, stat, w, w)
+    with pytest.raises(ValueError, match="rstd"):
+        layernorm.layernorm_bwd(x, x, stat, stat[:4], w, w)
+    assert layernorm.bwd_launches == 0
 
 
 # T = 77 is off the JAX fused path's shapes (T % 8), but on the card
@@ -130,4 +257,45 @@ def test_bert_encoder_kernels_on_vs_off(gen, dtype, T):
     assert (attention.launches, layernorm.launches) == (2, 5)
     tol = dict(rtol=1e-4, atol=1e-4) if dtype is None else dict(rtol=0.1, atol=0.1)
     torch.testing.assert_close(a, b, **tol)
+
+
+def test_bert_encoder_backward_kernels_on_vs_off(gen):
+    """A forward with grad (dropout off) and a backward: the gradients of
+    every parameter with both kernels against neither, in f32."""
+    cfg = bert.BertConfig(vocab_size=512, num_layers=2)
+    off = bert.BertEncoder(cfg, device="cuda", generator=gen)
+    on = bert.BertEncoder(dataclasses.replace(cfg, fused_attention=True, fused_ln=True), device="cuda")
+    on.load_state_dict(off.state_dict())
+    ids = torch.randint(0, 512, (4, 128), device="cuda", generator=gen)
+    mask = _mask(4, 128)
+    dy = torch.randn((4, 128, 768), generator=gen, device="cuda")
+    attention.launches = attention.bwd_launches = layernorm.launches = layernorm.bwd_launches = 0
+    on(ids, mask).backward(dy)
+    off(ids, mask).backward(dy)
+    assert (attention.launches, attention.bwd_launches) == (2, 2)
+    assert (layernorm.launches, layernorm.bwd_launches) == (5, 5)
+    grads_off = dict(off.named_parameters())
+    for name, p in on.named_parameters():
+        torch.testing.assert_close(p.grad, grads_off[name].grad, rtol=1e-3, atol=1e-4, msg=name)
+
+
+def test_bert_training_forward_draws_attention_seeds_on_the_host(gen):
+    """With dropout on and fused attention, each layer's seed comes from
+    the CPU generator: the same host seed replays the same output."""
+    cfg = bert.BertConfig(vocab_size=512, num_layers=2, fused_attention=True, fused_ln=True,
+                          dropout_bits=16, gelu_output_bwd=True)
+    enc = bert.BertEncoder(cfg, dtype=torch.bfloat16, device="cuda", generator=gen)
+    ids = torch.randint(0, 512, (4, 128), device="cuda", generator=gen)
+    mask = _mask(4, 128)
+    outs = []
+    for host_seed in (1, 1, 2):
+        attention.dropout_launches = 0
+        with torch.no_grad():
+            outs.append(enc(ids, mask, deterministic=False,
+                            generator=torch.Generator(device="cuda").manual_seed(3),
+                            host_generator=torch.Generator().manual_seed(host_seed)))
+        assert attention.dropout_launches == 2
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError, match="host_generator"):
+        enc(ids, mask, deterministic=False)
 

@@ -1,11 +1,15 @@
-"""The port's LayerNorm forward (``ops/kernels/layernorm.py``) on the CPU:
-its plain version against the JAX package's Pallas forward ``_call_fwd``
-in interpret mode (y, mean, rstd) and against ``torch.nn.LayerNorm``;
-and the wrapper's contract. The Triton kernel itself is held to the
-plain version on the card by ``chip_smoke.py``.
+"""The port's LayerNorm (``ops/kernels/layernorm.py``) on the CPU: the
+plain forward against the JAX package's Pallas forward ``_call_fwd`` in
+interpret mode (y, mean, rstd) and against ``torch.nn.LayerNorm``; the
+vjp of ``fused_layernorm`` (dx, dgamma, dbeta, through the plain
+backward) against JAX ``fused_layernorm(..., interpret=True)``'s; and
+the wrappers' contract. The Triton kernels themselves are held to the
+plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_kernels_cuda.py``.
 
 Tolerance: rtol = atol = 1e-5 (plain version of a kernel)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,6 +61,45 @@ def test_plain_matches_torch_layernorm(shape):
     np.testing.assert_allclose(got.detach().numpy(), want.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 7, 128), (513, 256), (3, 100)])
+def test_vjp_matches_pallas(shape, dtype):
+    x, scale, bias = _inputs(shape, seed=2)
+    dy = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    xj = jnp.asarray(x, jdt)
+    y, vjp = jax.vjp(lambda a, s, b: jln.fused_layernorm(a, s, b, EPS, True),
+                     xj, jnp.asarray(scale), jnp.asarray(bias))
+    want = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(tdt).requires_grad_(True)
+    st, bt = (torch.from_numpy(a).requires_grad_(True) for a in (scale, bias))
+    got = layernorm.fused_layernorm(xt, st, bt, EPS)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(y), **TOL)
+    got.backward(torch.from_numpy(dy))
+    assert xt.grad.dtype == tdt
+    tol = TOL if dtype == "f32" else dict(rtol=1e-2, atol=1e-2)  # dx rounded to bf16
+    np.testing.assert_allclose(xt.grad.float().numpy(), np.asarray(want[0], np.float32), err_msg="dx", **tol)
+    for name, g, w in (("dgamma", st.grad, want[1]), ("dbeta", bt.grad, want[2])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, rtol=1e-5, atol=1e-4)
+
+
+def test_bwd_plain_matches_autograd_of_torch_layernorm():
+    x, scale, bias = _inputs((64, 48), seed=4)
+    dy = torch.randn(64, 48, generator=torch.Generator().manual_seed(1))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ln = torch.nn.LayerNorm(48, eps=EPS)
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(scale))
+        ln.bias.copy_(torch.from_numpy(bias))
+    ln(xt).backward(dy)
+    _, mean, rstd = layernorm.layernorm_fwd(torch.from_numpy(x), ln.weight, ln.bias, EPS)
+    layernorm.bwd_launches = 0
+    dx, dgamma, dbeta = layernorm.layernorm_bwd(dy, torch.from_numpy(x), mean, rstd, ln.weight, ln.bias)
+    assert layernorm.bwd_launches == 0
+    for g, w in ((dx, xt.grad), (dgamma, ln.weight.grad), (dbeta, ln.bias.grad)):
+        np.testing.assert_allclose(g.detach().numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
+
+
 def test_output_dtype_is_promoted():
     x = torch.randn(6, 32).bfloat16()
     assert layernorm.fused_layernorm(x, torch.ones(32), torch.zeros(32)).dtype == torch.float32
@@ -86,3 +129,5 @@ def test_no_kernel_for_other_devices():
     x = torch.zeros(4, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         layernorm.layernorm_fwd(x, x[0], x[0], EPS)
+    with pytest.raises(ValueError, match="no kernel"):
+        layernorm.layernorm_bwd(x, x, x[:, :1], x[:, :1], x[0], x[0])

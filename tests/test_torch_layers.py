@@ -128,6 +128,37 @@ def test_batchnorm_train_matches_flax_stats():
     np.testing.assert_allclose(tmod.running_var.numpy(), np.asarray(stats["var"]), **TOL)
 
 
+def grid_input(shape, shift, step, seed):
+    """``shift`` plus N(0, 0.5) rounded to multiples of ``step``: with a
+    coarse enough step every sum of x and x^2 is exact in f32, so the
+    result does not depend on the order in which a framework sums."""
+    z = np.random.default_rng(seed).standard_normal(shape) * 0.5
+    return (shift + np.round(z / step) * step).astype(np.float32)
+
+
+@pytest.mark.parametrize("shift,step", [(0.0, None), (30.0, 0.5)])
+def test_batchnorm_train_uses_flax_fast_variance(shift, step):
+    """flax's nn.BatchNorm takes var = max(E[x^2] - E[x]^2, 0) in f32
+    (use_fast_variance). At shift 30 that formula cancels 900 against
+    900, so its f32 result depends on the summation order (XLA on the CPU
+    sums rows in order, torch in blocks): the case holds the formula on
+    input whose sums are exact, where the two-pass variance the port used
+    before reads 2.5e-4 max abs y difference."""
+    shape = (8, 16, 16, 64)
+    if step is None:
+        x = (np.random.default_rng(8).standard_normal(shape) * 0.5 + shift).astype(np.float32)
+    else:
+        x = grid_input(shape, shift, step, 8)
+    jmod = jlayers.BatchNorm(use_running_average=False)
+    tmod = tlayers.BatchNorm(64).train()
+    variables = _port_pair(jmod, tmod, x, 7)
+    want, mut = jmod.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    np.testing.assert_allclose(nhwc(tmod(nchw(x))), np.asarray(want), **TOL)
+    stats = mut["batch_stats"]["bn"]
+    np.testing.assert_allclose(tmod.running_mean.numpy(), np.asarray(stats["mean"]), **TOL)
+    np.testing.assert_allclose(tmod.running_var.numpy(), np.asarray(stats["var"]), **TOL)
+
+
 @pytest.mark.parametrize("dtype,want", [(None, torch.float32), (torch.bfloat16, torch.bfloat16)])
 def test_batchnorm_output_dtype(dtype, want):
     bn = tlayers.BatchNorm(4, dtype=dtype).eval()
