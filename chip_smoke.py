@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's v1 sampling path and its stage-1 training
-step on one CUDA card.
+"""Drive the PyTorch port's v1 sampling path, its stage-1 training step
+and its v2 VQGAN+CLIP generation on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything, as below
+    python3 chip_smoke.py --only v2  # build, then phase 7 alone
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -45,8 +46,36 @@ non-zero exit and no result line:
    after 2 warm-ups, img/s), the training kernels against their plain
    versions, and ``torch.profiler`` over one step.
 
-Then one JSON line of the kernels, the card's line from nvidia-smi, and
-last ``{"ok": true, "device": {...}}``.
+7. v2 generation — the codebook argmin (CUDA C++) and the scanline lerp
+   (Triton) against their plain versions: the argmin at (N, K, d) =
+   (64, 16384, 256), (512, 16384, 256), (1000, 1000, 256), (37, 32, 8),
+   x in f32 and bf16, a taming-style U(+-1/K) codebook and an N(0, 1)
+   one (a differing index passes only if the two codes' scores differ by
+   at most 1e-5 of the row's score range; such rows are counted), and
+   with planted exact ties and one row per codebook tile, where the
+   indices must be equal; the lerp at (4096, 3, 128) -> 128 and -> 224,
+   K = 200, decreasing coordinates, coordinates outside [0, K - 1] and a
+   strided 4-D source (<= 1e-6), its backward against autograd through an
+   f32 dense tent product (<= 2e-2 relative). One fault is planted per
+   kernel at run time (an argmin blind to the last codebook tile, a lerp
+   with f and 1 - f swapped) and the checks must catch it. Then the main
+   path: a seeded random-init full-width VQGAN ``.ckpt`` (taming's
+   names), its yaml and a ViT-B/32 CLIP ``state_dict`` are written to a
+   temporary directory and the v2 CLI runs in-process on the card with
+   the warp kernel on (6 iterations, then resumed to 9): the 128 x 128
+   PNG and its ``comment`` chunk, finite losses, the launch counts (the
+   argmin once per step and per synth, the lerp twice per step) and the
+   resume are checked. Then the engine at batch 4 in f32 and bf16: one
+   step from the same state and draws with the kernels on and off
+   (losses and the gradient of z). Then times: 20-step windows at batch
+   1 and 4 with the kernels on and off, each kernel against its plain
+   version and the library call, and ``torch.profiler`` over 5 steps.
+
+Then one JSON line of the kernels (each with its launches on its main
+path, its error, its time, its plain version's, the least time the card
+could take and, where one PyTorch call computes the same function, that
+call's), the card's line from nvidia-smi, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -490,6 +519,14 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
             f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms (inputs L2-resident) [{card}]")
     # 24 inputs of 3 MB (72 MB, more than the 50 MB L2) taken in turn, so
     # each launch reads its input from device memory
+    lib = library_times((q, k, v, mask, None, nh), (x, scale, bias, None))
+    timed["attention"].update(library_ms=lib["sdpa_fwd"], **attention_bound(ATTN_SHAPE, 2, False))
+    timed["layernorm"].update(library_ms=lib["ln_fwd"], **layernorm_bound(LN_SHAPE, False))
+    for name in ("attention", "layernorm"):
+        t = timed[name]
+        log(f"  {name}: library call {t['library_ms']:.4f} ms "
+            f"({'F.scaled_dot_product_attention' if name == 'attention' else 'F.layer_norm'}), "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
     xs = [torch.randn(LN_SHAPE, generator=gen, device="cuda") for _ in range(24)]
     turn = iter(range(10**9))
     ln_hbm = device_ms(lambda: layernorm.layernorm_fwd(xs[next(turn) % 24], scale, bias, 1e-12), calls=24)
@@ -695,17 +732,577 @@ def phase_train(attention, layernorm, gen, card):
         log(f"  {name} {shape}: kernel {timed[name]['ms']:.4f} ms, plain "
             f"{timed[name]['plain_ms']:.4f} ms back to back by CUDA events; device time "
             f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms [{card}]")
+    # the library calls compute the functions at rate 0: none draws the
+    # package's counter-hash dropout, so the kernels are timed at rate 0
+    # beside them and the two dropout rows of the kernels' line have none
+    _, m0, l0 = attention.attention_fwd(q, k, v, mask, nh)
+    rate0 = {"attention_fwd": cuda_ms(lambda: attention.attention_fwd(q, k, v, mask, nh), inner=5),
+             "attention_bwd": cuda_ms(lambda: attention.attention_bwd(q, k, v, do, mask, m0, l0, nh), inner=5)}
+    lib = library_times((q, k, v, mask, do, nh), (x, scale, scale, dy))
+    log(f"  at rate 0, bf16 {TRAIN_ATTN[:3]}: attention_fwd kernel {rate0['attention_fwd']:.4f} ms, "
+        f"F.scaled_dot_product_attention {lib['sdpa_fwd']:.4f} ms; attention_bwd kernel "
+        f"{rate0['attention_bwd']:.4f} ms, its autograd backward {lib['sdpa_bwd']:.4f} ms [{card}]")
+    log(f"  layernorm f32 {TRAIN_LN}: F.layer_norm {lib['ln_fwd']:.4f} ms, its autograd backward "
+        f"{lib['ln_bwd']:.4f} ms [{card}]")
+    timed["attention_fwd_dropout"].update(library_ms=None, **attention_bound(TRAIN_ATTN, 2, False))
+    timed["attention_bwd"].update(library_ms=None, **attention_bound(TRAIN_ATTN, 2, True))
+    timed["layernorm_bwd"].update(library_ms=lib["ln_bwd"], **layernorm_bound(TRAIN_LN, True))
+    for name, t in timed.items():
+        log(f"  {name}: bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
     return totals, timed
 
 
-def main() -> int:
+# ------------------------------------------------------------------ v2
+
+V2_ARGS = ["-p", "a watercolor fox|stormy sea:0.5", "-se", "3", "-sd", str(SEED)]
+V2_ITERS, V2_RESUMED_ITERS, V2_EVERY = 6, 9, 3
+V2_IMAGE = 128
+VQ_SHAPE = (64, 16384, 256)  # N, K, d on the main path: an 8 x 8 latent, the ImageNet f16 codebook
+VQ_TIMED_N = (64, 256, 512, 4096)
+LERP_SHAPE = (32 * 128, 3, 128, 128)  # S, C, K, O: 32 cutouts of 128 scanlines, 128 px
+V2_WINDOW = 20
+ARGMIN_GAP = 1e-5  # of the row's score range, between the kernel's code and the plain version's
+LERP_TOL = (0.0, 1e-6)
+LERP_BWD_TOL = (2e-2, 2e-2)  # the bf16 rounding of the weights and the cotangent
+# kernels on vs off over one v2 step from the same state and draws:
+# relative L2 of the losses and of the gradient of z
+V2_STEP_TOL = {"f32": 1e-4, "bf16": 2e-2}
+# the warp through the scanline kernel against the dense form, which
+# rounds weights and pixels to bf16: cutouts max abs, and relative L2 of
+# the image gradient of sum(cutouts ** 2) (each image pixel sums over its
+# 32 cutouts, so no absolute limit fits) and of the step's losses
+WARP_TOL = {"cuts": 2e-2, "grad": 2e-2, "losses": 2e-2}
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12}  # the card's published peaks
+
+
+def bound(moved: float, operations: float, unit: str) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory
+    rate and the operations over the peak rate of ``unit``."""
+    by_bytes, by_ops = moved / PEAK["bytes"], operations / PEAK[unit]
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def attention_bound(shape, itemsize, backward: bool) -> dict:
+    B, T, H, nh = shape
+    tensors = 7 if backward else 4  # q, k, v, o | q, k, v, do, dq, dk, dv
+    moved = tensors * B * T * H * itemsize + B * T * 4 + 2 * B * nh * T * 4  # + mask, m, l
+    products = 5 if backward else 2  # (T, T) products of width H / heads per head
+    return bound(moved, products * 2 * B * T * T * H, "bf16" if itemsize == 2 else "f32")
+
+
+def layernorm_bound(shape, backward: bool) -> dict:
+    n, d = shape
+    moved = (3 if backward else 2) * n * d * 4 + 2 * n * 4 + (3 if backward else 2) * d * 4
+    return bound(moved, (12 if backward else 8) * n * d, "f32")
+
+
+def sdpa_inputs(q, k, v, mask, nh):
+    B, T, H = q.shape
+    heads = [t.reshape(B, T, nh, H // nh).transpose(1, 2) for t in (q, k, v)]
+    return heads, mask[:, None, None, :].bool()
+
+
+def library_times(attention_case, ln_case) -> dict:
+    """The one PyTorch call that computes each v1 kernel's function, at
+    the kernel's timed shape: ``scaled_dot_product_attention`` (rate 0)
+    and its autograd backward, ``F.layer_norm`` and its backward. Timed
+    here, used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, mask, do, nh = attention_case
+    (qh, kh, vh), keep = sdpa_inputs(q, k, v, mask, nh)
+    out = {"sdpa_fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), inner=5)}
+    if do is not None:
+        leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+        doh = do.reshape(o.shape[0], o.shape[2], nh, -1).transpose(1, 2)
+        out["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True), inner=5)
+    x, scale, bias, dy = ln_case
+    out["ln_fwd"] = cuda_ms(lambda: F.layer_norm(x, x.shape[-1:], scale, bias, 1e-12), inner=5)
+    if dy is not None:
+        leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+        y = F.layer_norm(leaves[0], x.shape[-1:], leaves[1], leaves[2], 1e-12)
+        out["ln_bwd"] = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), inner=5)
+    return out
+
+
+def must_catch(what: str, check) -> None:
+    """``check`` runs one of the phase's comparisons on a kernel with a
+    planted fault; it has to raise."""
+    try:
+        check()
+    except AssertionError as e:
+        log(f"  planted fault, {what}: caught ({e})")
+        return
+    raise AssertionError(f"planted fault not caught: {what}")
+
+
+def check_argmin(name, fn, x, cb, exact: bool):
+    """``fn(x, cb)`` against the plain version. Indices must be equal;
+    unless ``exact``, a differing index passes if the two codes' scores
+    (in f64) differ by at most ``ARGMIN_GAP`` of the row's score range.
+    Returns (largest such gap, rows that differ)."""
     import torch
 
+    from imagegenerator_tpu_torch.ops.kernels import vq_argmin
+
+    got = fn(x, cb)
+    torch.cuda.synchronize()
+    want = vq_argmin.vq_argmin_reference(x, cb)
+    if got.dtype != torch.int32 or got.shape != want.shape:
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}")
+    if int(got.min()) < 0 or int(got.max()) >= cb.shape[0]:
+        raise AssertionError(f"{name}: index outside [0, {cb.shape[0]})")
+    differ = (got != want).nonzero().flatten()
+    gap = 0.0
+    if differ.numel():
+        if exact:
+            raise AssertionError(f"{name}: {differ.numel()} indices differ where they must be equal")
+        cbd = cb.double()
+        scores = (cbd * cbd).sum(dim=1)[None, :] - 2.0 * x[differ].double() @ cbd.t()
+        span = scores.amax(dim=1) - scores.amin(dim=1)
+        a = scores.gather(1, got[differ].long()[:, None])[:, 0]
+        b = scores.gather(1, want[differ].long()[:, None])[:, 0]
+        gap = ((a - b).abs() / span).max().item()
+    ok = gap <= ARGMIN_GAP
+    log(f"  {name}: {differ.numel()} of {x.shape[0]} indices differ, largest score gap "
+        f"{gap:.3e} of the row's range (limit {0 if exact else ARGMIN_GAP:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return gap, int(differ.numel())
+
+
+def codebooks(K, d, gen):
+    import torch
+
+    return {"taming": (torch.rand((K, d), generator=gen, device="cuda") * 2 - 1) / K,
+            "normal": torch.randn((K, d), generator=gen, device="cuda")}
+
+
+def phase_v2_kernels(vq_argmin, scanline_lerp, gen):
+    import torch
+
+    log("phase 7: v2 kernels vs plain")
+    set_tf32(False)
+    errs = {}
+    argmin = vq_argmin.vq_argmin
+    for N, K, d in (VQ_SHAPE, (512, 16384, 256), (1000, 1000, 256), (37, 32, 8)):
+        for kind, cb in codebooks(K, d, gen).items():
+            rows = torch.randint(0, K, (N,), generator=gen, device="cuda")
+            if kind == "taming":  # near a code, at the codebook's own scale
+                x = cb[rows] + (torch.rand((N, d), generator=gen, device="cuda") - 0.5) / K
+            else:
+                x = torch.randn((N, d), generator=gen, device="cuda")
+            for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                errs["vq", N, kind, tag] = check_argmin(
+                    f"vq_argmin ({N}, {K}, {d}) {kind} codebook, x {tag}", argmin, x.to(dtype), cb, False)
+    # torch's own argmin on the card: does it name the first minimum?
+    ties = torch.zeros((4, 1024), device="cuda")
+    log(f"  torch.argmin of an all-equal row on the card: {ties.argmin(dim=1).tolist()} "
+        "(the plain version does not rely on it)")
+
+    # planted exact ties: integer-valued codes and rows, so every score is
+    # exact in f32 whatever the order of the sums; duplicate codes
+    N, K, d = VQ_SHAPE
+    cb = torch.randint(-2, 3, (K, d), generator=gen, device="cuda").float()
+    cb[K - 1], cb[K // 2 + 3], cb[K - 70] = cb[5], cb[5], cb[64]
+    x = torch.randint(-2, 3, (N, d), generator=gen, device="cuda").float()
+    x[0], x[1], x[2] = cb[5], cb[64], cb[K - 1]
+    check_argmin("vq_argmin planted ties, integer scores", argmin, x, cb, True)
+    got = argmin(x[:3].contiguous(), cb).tolist()
+    if got != [5, 64, 5]:
+        raise AssertionError(f"planted ties went to {got}, not to the lowest indices [5, 64, 5]")
+    log("  duplicated codes: the lowest index of each wins")
+
+    # one row copied from each 64-code tile, the last included
+    cb = codebooks(K, d, gen)["normal"]
+    picks = torch.arange(0, K, 64, device="cuda") + torch.randint(0, 64, (K // 64,), generator=gen, device="cuda")
+
+    def every_tile(fn):
+        rows = cb[picks].contiguous()
+        check_argmin("vq_argmin, one row per codebook tile", fn, rows, cb, True)
+        if not torch.equal(fn(rows, cb).long(), picks):
+            raise AssertionError("a row copied from the codebook did not find its own code")
+
+    every_tile(argmin)
+    must_catch("an argmin that ignores the last codebook tile",
+               lambda: every_tile(lambda x, c: argmin(x, c[: K - 64].contiguous())))
+
+    # ------------------------------------------------------ scanline lerp
+    fwd = scanline_lerp.scanline_lerp_fwd
+
+    def check_lerp(name, fn, src4, coords):
+        got = fn(src4, coords)
+        torch.cuda.synchronize()
+        S, C, K_ = src4.shape[0] * src4.shape[1], src4.shape[2], src4.shape[3]
+        want = scanline_lerp.scanline_lerp_reference(src4.reshape(S, C, K_), coords)
+        return compare(name, got.reshape(want.shape), want, *LERP_TOL)
+
+    def monotone(S, O, K_, decreasing=False):
+        steps = torch.rand((S, O), generator=gen, device="cuda") * (1.1 * K_ / O) + 0.45 * K_ / O
+        coords = steps.cumsum(dim=1) - 2.0  # starts below 0 and ends past K - 1: border clamp
+        return coords.flip(1).contiguous() if decreasing else coords
+
+    S, C, K_, O = LERP_SHAPE
+    src = torch.rand((1, S, C, K_), generator=gen, device="cuda")
+    errs["lerp"] = check_lerp(f"scanline_lerp ({S}, {C}, {K_}) -> {O}", fwd, src, monotone(S, O, K_))
+    check_lerp(f"scanline_lerp ({S}, {C}, {K_}) -> 224", fwd, src, monotone(S, 224, K_))
+    check_lerp(f"scanline_lerp ({S}, {C}, {K_}) -> {O}, decreasing", fwd, src, monotone(S, O, K_, True))
+    wild = torch.rand((S, O), generator=gen, device="cuda") * (K_ + 40) - 20
+    check_lerp(f"scanline_lerp ({S}, {C}, {K_}) -> {O}, coords in [-20, K + 20)", fwd, src, wild)
+    wide = torch.rand((1, 600, C, 200), generator=gen, device="cuda")
+    check_lerp("scanline_lerp (600, 3, 200) -> 224, K = 200", fwd, wide, monotone(600, 224, 200))
+    check_lerp("scanline_lerp (7, 1, 2) -> 5, K = 2", fwd,
+               torch.rand((1, 7, 1, 2), generator=gen, device="cuda"), monotone(7, 5, 2))
+    nhwc = torch.rand((S // K_, K_, K_, C), generator=gen, device="cuda")  # N, H, W, C
+    check_lerp("scanline_lerp on the NHWC image's (N, H, C, W) view", fwd,
+               nhwc.permute(0, 1, 3, 2), monotone(S, O, K_))
+    check_lerp("scanline_lerp on pass 2's (N, Wo, C, H) view", fwd,
+               nhwc.permute(0, 2, 3, 1).contiguous().permute(0, 3, 2, 1), monotone(S, O, K_))
+
+    def swapped(src4, coords):  # f and 1 - f swapped: the position mirrored in its cell
+        k = src4.shape[-1]
+        s = coords.clamp(0.0, k - 1.0)
+        k0 = s.long().clamp_max(k - 2).float()
+        return fwd(src4, 2.0 * k0 + 1.0 - s)
+
+    must_catch("a lerp with f and 1 - f swapped",
+               lambda: check_lerp("scanline_lerp, swapped", swapped, src, monotone(S, O, K_)))
+
+    # backward: the autograd.Function against autograd through the f32
+    # dense tent product
+    coords = monotone(S, O, K_)
+    leaf = src[0].clone().requires_grad_(True)
+    cot = torch.randn((S, C, O), generator=gen, device="cuda")
+    (got,) = torch.autograd.grad(scanline_lerp.scanline_lerp(leaf, coords), leaf, cot)
+    dense_leaf = src[0].clone().requires_grad_(True)
+    dense = torch.einsum("sok,sck->sco", scanline_lerp.tent_weights(coords, K_), dense_leaf)
+    (want,) = torch.autograd.grad(dense, dense_leaf, cot)
+    errs["lerp_bwd"] = compare(f"scanline_lerp backward ({S}, {C}, {K_}) <- {O}", got, want, *LERP_BWD_TOL)
+    return errs
+
+
+def v2_configs():
+    from imagegenerator_tpu_torch.v2.clip import CLIPConfig
+    from imagegenerator_tpu_torch.v2.vqgan import VQGANConfig
+
+    return VQGANConfig.imagenet_f16_16384(), CLIPConfig.vit_b32()
+
+
+def v2_counts(vq_argmin, scanline_lerp) -> dict:
+    return {"vq_argmin": vq_argmin.launches, "scanline_lerp": scanline_lerp.launches}
+
+
+def png_comment(path: Path) -> str:
+    data = path.read_bytes()
+    at = data.find(b"tEXtcomment\0")
+    if at < 0:
+        raise AssertionError(f"{path} has no comment chunk")
+    length = int.from_bytes(data[at - 4:at], "big")
+    return data[at + 12:at + 4 + length].decode("latin-1")
+
+
+def run_v2_cli(args) -> str:
+    """The v2 CLI in-process with the warp kernel on; returns what it
+    printed (and prints it)."""
+    import contextlib
+    import io
+    import os
+
+    from imagegenerator_tpu_torch.v2 import generate
+
+    before = os.environ.get("IMAGEGEN_WARP_KERNEL")
+    os.environ["IMAGEGEN_WARP_KERNEL"] = "1"
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            generate.main(args)
+    finally:
+        if before is None:
+            del os.environ["IMAGEGEN_WARP_KERNEL"]
+        else:
+            os.environ["IMAGEGEN_WARP_KERNEL"] = before
+        for line in printed.getvalue().splitlines():
+            log(f"    | {line}")
+    return printed.getvalue()
+
+
+def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
+    import math
+
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIP
+    from imagegenerator_tpu_torch.v2.vqgan import VQModel
+
+    log("phase 7: v2 main path, full width")
+    t0 = time.perf_counter()
+    vq_cfg, clip_cfg = v2_configs()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    vq_state = VQModel(vq_cfg, device="cuda", generator=gen).state_dict()
+    clip_state = CLIP(clip_cfg, device="cuda", generator=gen).state_dict()
+    ckpt, conf, clip_pt = tmp / "vqgan.ckpt", tmp / "vqgan.yaml", tmp / "ViT-B-32.pt"
+    torch.save({"state_dict": {k: v.cpu() for k, v in vq_state.items()}}, ckpt)
+    torch.save({k: v.cpu() for k, v in clip_state.items()}, clip_pt)
+    # taming's yaml; written in JSON's syntax, which is YAML too
+    conf.write_text(json.dumps({"model": {
+        "target": "taming.models.vqgan.VQModel",
+        "params": {"embed_dim": vq_cfg.embed_dim, "n_embed": vq_cfg.n_embed, "ddconfig": {
+            "z_channels": vq_cfg.z_channels, "resolution": vq_cfg.resolution,
+            "in_channels": vq_cfg.in_channels, "out_ch": vq_cfg.out_ch, "ch": vq_cfg.ch,
+            "ch_mult": list(vq_cfg.ch_mult), "num_res_blocks": vq_cfg.num_res_blocks,
+            "attn_resolutions": list(vq_cfg.attn_resolutions), "dropout": vq_cfg.dropout}}}}))
+    n_vq = sum(v.numel() for v in vq_state.values())
+    n_clip = sum(v.numel() for v in clip_state.values())
+    log(f"  full-width random init: VQGAN {n_vq / 1e6:.1f}M, CLIP ViT-B/32 {n_clip / 1e6:.1f}M "
+        f"parameters, written in {time.perf_counter() - t0:.1f} s")
+
+    out, state_path = tmp / "out.png", tmp / "s.npz"
+    files = ["-conf", str(conf), "-ckpt", str(ckpt), "--clip_checkpoint", str(clip_pt),
+             "-o", str(out), "--state", str(state_path)]
+    launches = None
+    for iters, start in ((V2_ITERS, 0), (V2_RESUMED_ITERS, V2_ITERS)):
+        vq_argmin.launches = scanline_lerp.launches = 0
+        t0 = time.perf_counter()
+        printed = run_v2_cli(V2_ARGS + ["-i", str(iters)] + files)
+        torch.cuda.synchronize()
+        counts = v2_counts(vq_argmin, scanline_lerp)
+        log(f"  v2 CLI to iteration {iters}: {time.perf_counter() - t0:.1f} s; launches {counts}")
+        if start and f"Resumed state at iteration {start}" not in printed:
+            raise AssertionError(f"the second run did not resume at {start}")
+        steps = iters - start
+        checkins = steps // V2_EVERY + 1  # each: one synth and one loss evaluation
+        want = {"vq_argmin": steps + 2 * checkins, "scanline_lerp": 2 * steps + 2 * checkins}
+        if counts != want:
+            raise AssertionError(f"kernel launches {counts}, expected {want}")
+        losses = [float(l.split("loss: ")[1].split(",")[0]) for l in printed.splitlines()
+                  if l.startswith(("i: ", "progress: "))]
+        if len(losses) != checkins + steps // V2_EVERY or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"losses {losses}")
+        if png_size(out) != (V2_IMAGE, V2_IMAGE):
+            raise AssertionError(f"{out}: size {png_size(out)}")
+        comment = png_comment(out)
+        if comment != str(V2_ARGS[1].split("|")):
+            raise AssertionError(f"comment chunk {comment!r}")
+        with np.load(state_path) as d:
+            saved = (int(d["iters_done"]), int(d["leaf_4"]), tuple(d["leaf_0"].shape))
+        if saved != (iters, iters, (1, 8, 8, 256)):
+            raise AssertionError(f"state file {saved}")
+        log(f"  {V2_IMAGE}x{V2_IMAGE} PNG, comment {comment!r}; {len(losses)} finite losses; "
+            f"state file at iteration {iters}; launches match {want}")
+        launches = launches or counts
+    return launches, vq_state, clip_state
+
+
+def v2_engine(vq_state, clip_state, dtype, kernels: bool, vq_kernel=None):
+    """A full-width engine sharing the given weights. ``kernels``: the
+    warp through the scanline kernel and the argmin kernel, or the dense
+    warp and the plain argmin; ``vq_kernel`` overrides the argmin's."""
+    from imagegenerator_tpu_torch.v2.engine import GenerateEngine
+
+    vq_on = kernels if vq_kernel is None else vq_kernel
+    return GenerateEngine(*v2_configs(), vq_state, clip_state, compute_dtype=dtype,
+                          warp_kernel=kernels, use_vq_kernel=None if vq_on else False, device="cuda")
+
+
+def v2_prompts(engine, batch):
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.v2.engine import pad_prompt_specs
+    from imagegenerator_tpu_torch.v2.prompts import split_prompt
+    from imagegenerator_tpu_torch.v2.tokenizer import open_tokenizer
+
+    sets = [["a watercolor fox", "stormy sea:0.5"], ["a red bus on a street"],
+            ["two dogs on a beach:1:0.2", "blurry:-0.5"], ["a bowl of fruit"]][:batch]
+    tokenizer = open_tokenizer(None, engine.clip_config.context_length, engine.clip_config.vocab_size)
+    rows = []
+    for prompts in sets:
+        parts = [split_prompt(p) for p in prompts]
+        embeds = [engine.encode_text(tokenizer([text])).cpu().numpy()[0] for text, _, _ in parts]
+        rows.append(pad_prompt_specs(embeds, [w for _, w, _ in parts], [s for _, _, s in parts], pad_to=2))
+    return tuple(torch.from_numpy(np.concatenate([r[k] for r in rows])).cuda() for k in range(3))
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+
+def phase_v2_on_off(vq_state, clip_state, gen):
+    import torch
+
+    log("phase 7: one v2 step at batch 4, kernels on vs off")
+    set_tf32(False)
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        engines = {
+            "kernels on": v2_engine(vq_state, clip_state, dtype, True),
+            "plain argmin": v2_engine(vq_state, clip_state, dtype, True, vq_kernel=False),
+            "dense warp": v2_engine(vq_state, clip_state, dtype, False, vq_kernel=True),
+        }
+        on = engines["kernels on"]
+        z0 = on.random_token_latent(gen, 4, 8, 8)
+        prompts = v2_prompts(on, 4)
+        draws = on.make_cutouts.draw(gen, on.image_shape(z0), "cuda")
+        runs = {}
+        for name, engine in engines.items():
+            state, losses = engine.step(engine.init_state(z0), None, *prompts, draws=draws)
+            torch.cuda.synchronize()
+            runs[name] = (losses, state.z.grad.clone())
+            if not bool(torch.isfinite(losses).all() & torch.isfinite(state.z.grad).all()):
+                raise AssertionError(f"{tag} {name}: losses or gradient not finite")
+        log(f"  {tag} losses, kernels on: {[round(v, 5) for v in runs['kernels on'][0].flatten().tolist()]}; "
+            f"|grad z| {runs['kernels on'][1].norm().item():.4e}")
+        for name, limit in (("plain argmin", V2_STEP_TOL[tag]), ("dense warp", None)):
+            d_loss = rel_l2(runs["kernels on"][0], runs[name][0])
+            d_grad = rel_l2(runs["kernels on"][1], runs[name][1])
+            limits = (limit, limit) if limit else (WARP_TOL["losses"], None)
+            ok = d_loss <= limits[0] and (limits[1] is None or d_grad <= limits[1])
+            log(f"  {tag} kernels on vs {name}: losses relative L2 {d_loss:.3e} (limit {limits[0]:g}), "
+                f"grad z relative L2 {d_grad:.3e} "
+                f"({'limit %g' % limits[1] if limits[1] else 'reported, not held'}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: kernels on disagree with {name}")
+        if dtype is None:
+            # the cutouts themselves, and their image gradient, at the
+            # tolerance the JAX package holds its two warps to
+            image = on.synth(z0).detach()
+            outs = {}
+            for name in ("kernels on", "dense warp"):
+                leaf = image.clone().requires_grad_(True)
+                cuts = engines[name].make_cutouts.apply(draws, leaf)
+                (grad,) = torch.autograd.grad((cuts ** 2).sum(), leaf)
+                outs[name] = (cuts.detach(), grad)
+            diff = (outs["kernels on"][0] - outs["dense warp"][0]).abs().max().item()
+            log(f"  cutouts {tuple(outs['kernels on'][0].shape)}, scanline kernel vs dense warp: "
+                f"max abs {diff:.3e} (limit {WARP_TOL['cuts']:g}) {'ok' if diff <= WARP_TOL['cuts'] else 'FAIL'}")
+            if diff > WARP_TOL["cuts"]:
+                raise AssertionError("the two warps' cutouts disagree")
+            d_grad = rel_l2(outs["kernels on"][1], outs["dense warp"][1])
+            ok = d_grad <= WARP_TOL["grad"]
+            log(f"  image gradient of sum(cutouts ** 2), scanline kernel vs dense warp: relative L2 "
+                f"{d_grad:.3e} (limit {WARP_TOL['grad']:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the two warps' image gradients disagree")
+        del engines, runs
+
+
+def phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card):
+    import torch
+
+    log(f"phase 7: v2 times on {card}")
+    # torch's defaults, which the CLI runs under
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_ms = {}
+    for batch in (1, 4):
+        engines = {tag: v2_engine(vq_state, clip_state, None, tag == "on") for tag in ("on", "off")}
+        prompts = v2_prompts(engines["on"], batch)
+        z0 = engines["on"].random_token_latent(gen, batch, 8, 8)
+        states = {tag: e.init_state(z0) for tag, e in engines.items()}
+
+        def window(tag, n=V2_WINDOW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[tag].chain(states[tag], n, SEED, *prompts)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        for tag in engines:
+            window(tag, 3)
+        samples = {"on": [], "off": []}
+        for i in range(5):
+            for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                samples[tag].append(window(tag))
+        for tag in ("on", "off"):
+            ms = statistics.median(samples[tag])
+            step_ms[batch, tag] = ms
+            log(f"  v2 step batch {batch} f32 kernels {tag}: {ms:.3f} ms per step, "
+                f"{1e3 / ms:.2f} steps/s, {batch * 1e3 / ms:.2f} prompt-steps/s (windows of "
+                f"{V2_WINDOW}: {', '.join(f'{t:.2f}' for t in samples[tag])}) [{card}]")
+        for tag in ("on", "off"):
+            host_ms, events = profiled(lambda: engines[tag].chain(states[tag], 5, SEED, *prompts), calls=1)
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            log(f"  profiled 5 steps batch {batch}, kernels {tag}: host {host_ms / 5:.3f} ms per step, "
+                f"device busy {busy / 5:.3f} ms per step ({100 * busy / host_ms:.1f}%), "
+                f"{sum(e.count for e in events) // 5} kernels per step")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"    {e.self_device_time_total / 5e3:8.3f} ms {e.count // 5:5d}x {e.key[:90]}")
+        log(f"  peak device memory so far: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del engines, states
+
+    set_tf32(False)
+    timed = {}
+    _, K, d = VQ_SHAPE
+    cb = codebooks(K, d, gen)["taming"]
+    c2 = (cb * cb).sum(dim=1)
+    for N in VQ_TIMED_N:
+        x = cb[torch.randint(0, K, (N,), generator=gen, device="cuda")] * 1.5
+        t = {
+            "ms": cuda_ms(lambda: vq_argmin.vq_argmin(x, cb)),
+            "plain_ms": cuda_ms(lambda: vq_argmin.vq_argmin_reference(x, cb)),
+            "library_ms": cuda_ms(lambda: (c2 - 2.0 * x @ cb.t()).argmin(dim=-1)),
+            **bound(4 * (N * d + K * d + N), 2 * N * K * d + 2 * K * d, "f32"),
+        }
+        cdist_ms = cuda_ms(lambda: torch.cdist(x, cb).argmin(dim=-1))
+        dev = (device_ms(lambda: vq_argmin.vq_argmin(x, cb)),
+               device_ms(lambda: (c2 - 2.0 * x @ cb.t()).argmin(dim=-1)))
+        log(f"  vq_argmin f32 ({N}, {K}, {d}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library (c2 - 2 x @ cb.T).argmin {t['library_ms']:.4f} ms with c2 given, "
+            f"cdist().argmin {cdist_ms:.4f} ms, back to back by CUDA events; device time kernel "
+            f"{dev[0]:.4f} ms, library {dev[1]:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']} [{card}]")
+        if N == VQ_SHAPE[0]:
+            timed["vq_argmin"] = t
+    S, C, K_, O = LERP_SHAPE
+    src = torch.rand((1, S, C, K_), generator=gen, device="cuda")
+    coords = torch.rand((S, O), generator=gen, device="cuda") * (K_ - 1)
+    t = {
+        "ms": cuda_ms(lambda: scanline_lerp.scanline_lerp_fwd(src, coords)),
+        "plain_ms": cuda_ms(lambda: scanline_lerp.scanline_lerp_reference(src[0], coords)),
+        "library_ms": None,  # no one PyTorch call computes a per-row two-tap lerp
+        **bound(4 * (S * C * K_ + S * O + S * C * O), S * O * (5 + 3 * C), "f32"),
+    }
+    dev = device_ms(lambda: scanline_lerp.scanline_lerp_fwd(src, coords))
+    log(f"  scanline_lerp f32 ({S}, {C}, {K_}) -> {O}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+        f"back to back by CUDA events; device time kernel {dev:.4f} ms; bound {t['bound_ms']:.4f} ms by "
+        f"{t['bound_by']}; no library call [{card}]")
+    timed["scanline_lerp"] = t
+    return step_ms, timed
+
+
+def phase_v2(vq_argmin, scanline_lerp, gen, card):
+    errs = phase_v2_kernels(vq_argmin, scanline_lerp, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, vq_state, clip_state = phase_v2_path(Path(tmp), vq_argmin, scanline_lerp)
+    phase_v2_on_off(vq_state, clip_state, gen)
+    _, timed = phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card)
+    return launches, errs, timed
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=["v2"], default=None,
+                        help="build, then run one slice's phases alone (no result line)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from imagegenerator_tpu_torch.ops.kernels import _build, attention, layernorm
+    from imagegenerator_tpu_torch.ops.kernels import (
+        _build,
+        attention,
+        layernorm,
+        scanline_lerp,
+        vq_argmin,
+    )
 
     log("phase 0: device")
     card = subprocess.run(
@@ -733,10 +1330,16 @@ def main() -> int:
         w = torch.ones(LN_SHAPE[1], device="cuda")
         _, mean, rstd = layernorm.layernorm_fwd(xs, w, w, 1e-12)
         layernorm.layernorm_bwd(w.expand_as(xs).contiguous(), xs, mean, rstd, w, w)
+    scanline_lerp.scanline_lerp_fwd(torch.zeros((1, 8, 3, 16), device="cuda"), torch.zeros((8, 16), device="cuda"))
     torch.cuda.synchronize()
-    log(f"  triton {triton.__version__} layernorm fwd + bwd compile: {time.perf_counter() - t0:.2f} s")
+    log(f"  triton {triton.__version__} layernorm fwd + bwd and scanline lerp compile: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.only == "v2":
+        phase_v2(vq_argmin, scanline_lerp, gen, card)
+        print(card)
+        return 0
     errs = phase_kernels(attention, layernorm, gen)
     errs.update(phase_train_kernels(attention, layernorm, gen))
     with tempfile.TemporaryDirectory() as tmp:
@@ -746,8 +1349,12 @@ def main() -> int:
     _, attn_t, ln_t = phase_times(flat, batch, noise, attention, layernorm, gen, card)
     del flat, batch, noise
     train_launches, train_t = phase_train(attention, layernorm, gen, card)
+    v2_launches, v2_errs, v2_t = phase_v2(vq_argmin, scanline_lerp, gen, card)
     B = TRAIN_ATTN[0]
 
+    # launches: on the kernel's own main path (the sampling CLI's run, the
+    # stage-1 steps, the v2 CLI's first run); errors, times and bounds at
+    # that path's shape
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
@@ -774,7 +1381,23 @@ def main() -> int:
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:145",
          "launches": train_launches["layernorm_bwd"], "max_abs_err": errs["layernorm_bwd", "f32"],
          **train_t["layernorm_bwd"]},
+        # max_abs_err: the largest score gap, as a share of the row's score
+        # range, between the kernel's code and the plain version's (0 when
+        # every index is equal)
+        {"name": "vq_argmin", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/vq_argmin.cu",
+         "replaces": "imagegenerator_tpu/ops/pallas/vq_kernel.py:81",
+         "launches": v2_launches["vq_argmin"],
+         "max_abs_err": v2_errs["vq", VQ_SHAPE[0], "taming", "f32"][0], **v2_t["vq_argmin"]},
+        {"name": "scanline_lerp", "route": "triton",
+         "source": "imagegenerator_tpu_torch/ops/kernels/scanline_lerp.py",
+         "replaces": "imagegenerator_tpu/ops/pallas/scanline_lerp.py:105",
+         "launches": v2_launches["scanline_lerp"], "max_abs_err": v2_errs["lerp"],
+         **v2_t["scanline_lerp"]},
     ]
+    for kernel in kernels:
+        if kernel["launches"] < 1:
+            raise AssertionError(f"{kernel['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,14 @@ no module for (the Stage-II critic, its optimizer state) are ignored.
 torch side they are each optimizer's ``step``, ``exp_avg`` and
 ``exp_avg_sq`` (the moments in the parameter's torch layout).
 
+The v2 models cross differently: their ``state_dict``s carry taming's
+(VQGAN) and OpenAI's (CLIP) parameter names, and the JAX package holds
+them as nested flax parameter dicts. ``v2_vqgan_from_flax`` /
+``v2_vqgan_to_flax`` and ``v2_clip_from_flax`` / ``v2_clip_to_flax`` map
+one to the other (numpy arrays both sides; the inverse of the JAX
+package's ``v2/convert.py``), and ``v2_state_to_leaves`` /
+``v2_state_from_leaves`` the latent-optimization state.
+
 Layouts:
   * conv kernel HWIO -> OIHW, and convT kernel ``(kh, kw, out, in)`` ->
     ``(in, out, kh, kw)``: both ``transpose(3, 2, 0, 1)``;
@@ -212,3 +220,165 @@ def stage2_from_numpy(flat: dict, cfg, device=None) -> Stage2System:
 
 
 stage2_to_numpy = to_numpy
+
+
+# ------------------------------------------------------------------- v2
+
+
+def _vqgan_entries(c):
+    """(taming name, flax path, layout) of every VQGAN tensor."""
+    out = []
+
+    def conv(t, f):
+        out.extend([(f"{t}.weight", f + ("kernel",), "conv"), (f"{t}.bias", f + ("bias",), None)])
+
+    def norm(t, f):
+        out.extend([(f"{t}.weight", f + ("scale",), None), (f"{t}.bias", f + ("bias",), None)])
+
+    def resnet(t, f, in_ch, out_ch):
+        norm(f"{t}.norm1", f + ("norm1",))
+        conv(f"{t}.conv1", f + ("conv1",))
+        norm(f"{t}.norm2", f + ("norm2",))
+        conv(f"{t}.conv2", f + ("conv2",))
+        if in_ch != out_ch:
+            conv(f"{t}.nin_shortcut", f + ("nin_shortcut",))
+
+    def attn(t, f):
+        norm(f"{t}.norm", f + ("norm",))
+        for name in ("q", "k", "v", "proj_out"):
+            conv(f"{t}.{name}", f + (name,))
+
+    def mid(side, ch):
+        resnet(f"{side}.mid.block_1", (side, "mid_block_1"), ch, ch)
+        attn(f"{side}.mid.attn_1", (side, "mid_attn_1"))
+        resnet(f"{side}.mid.block_2", (side, "mid_block_2"), ch, ch)
+
+    conv("encoder.conv_in", ("encoder", "conv_in"))
+    cur_res, block_in = c.resolution, c.ch
+    for level, mult in enumerate(c.ch_mult):
+        for blk in range(c.num_res_blocks):
+            resnet(f"encoder.down.{level}.block.{blk}", ("encoder", f"down_{level}_block_{blk}"),
+                   block_in, c.ch * mult)
+            block_in = c.ch * mult
+            if cur_res in c.attn_resolutions:
+                attn(f"encoder.down.{level}.attn.{blk}", ("encoder", f"down_{level}_attn_{blk}"))
+        if level != c.num_resolutions - 1:
+            conv(f"encoder.down.{level}.downsample.conv",
+                 ("encoder", f"down_{level}_downsample", "conv"))
+            cur_res //= 2
+    mid("encoder", block_in)
+    norm("encoder.norm_out", ("encoder", "norm_out"))
+    conv("encoder.conv_out", ("encoder", "conv_out"))
+
+    block_in = c.ch * c.ch_mult[-1]
+    conv("decoder.conv_in", ("decoder", "conv_in"))
+    mid("decoder", block_in)
+    cur_res = c.resolution // c.f
+    for level in reversed(range(c.num_resolutions)):
+        for blk in range(c.num_res_blocks + 1):
+            resnet(f"decoder.up.{level}.block.{blk}", ("decoder", f"up_{level}_block_{blk}"),
+                   block_in, c.ch * c.ch_mult[level])
+            block_in = c.ch * c.ch_mult[level]
+            if cur_res in c.attn_resolutions:
+                attn(f"decoder.up.{level}.attn.{blk}", ("decoder", f"up_{level}_attn_{blk}"))
+        if level != 0:
+            conv(f"decoder.up.{level}.upsample.conv", ("decoder", f"up_{level}_upsample", "conv"))
+            cur_res *= 2
+    norm("decoder.norm_out", ("decoder", "norm_out"))
+    conv("decoder.conv_out", ("decoder", "conv_out"))
+    conv("quant_conv", ("quant_conv",))
+    conv("post_quant_conv", ("post_quant_conv",))
+    out.append(("quantize.embedding.weight", ("codebook",), None))
+    return out
+
+
+def _clip_entries(c):
+    """(OpenAI name, flax path, layout) of every CLIP (ViT) tensor."""
+    if c.is_resnet:
+        raise NotImplementedError("the ModifiedResNet CLIP towers are not ported")
+    out = []
+
+    def dense(t, f):
+        out.extend([(f"{t}.weight", f + ("kernel",), "dense"), (f"{t}.bias", f + ("bias",), None)])
+
+    def norm(t, f):
+        out.extend([(f"{t}.weight", f + ("scale",), None), (f"{t}.bias", f + ("bias",), None)])
+
+    def block(t, f):
+        norm(f"{t}.ln_1", f + ("ln_1",))
+        out.append((f"{t}.attn.in_proj_weight", f + ("in_proj", "kernel"), "dense"))
+        out.append((f"{t}.attn.in_proj_bias", f + ("in_proj", "bias"), None))
+        dense(f"{t}.attn.out_proj", f + ("out_proj",))
+        norm(f"{t}.ln_2", f + ("ln_2",))
+        dense(f"{t}.mlp.c_fc", f + ("mlp_fc",))
+        dense(f"{t}.mlp.c_proj", f + ("mlp_proj",))
+
+    out.append(("visual.conv1.weight", ("visual", "conv1", "kernel"), "conv"))
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        out.append((f"visual.{name}", ("visual", name), None))
+    norm("visual.ln_pre", ("visual", "ln_pre"))
+    norm("visual.ln_post", ("visual", "ln_post"))
+    for i in range(c.vision_layers):
+        block(f"visual.transformer.resblocks.{i}", ("visual", f"block_{i}"))
+    out.append(("token_embedding.weight", ("text", "token_embedding", "embedding"), None))
+    out.append(("positional_embedding", ("text", "positional_embedding"), None))
+    norm("ln_final", ("text", "ln_final"))
+    out.append(("text_projection", ("text", "text_projection"), None))
+    for i in range(c.text_layers):
+        block(f"transformer.resblocks.{i}", ("text", f"block_{i}"))
+    return out
+
+
+def _from_flax(entries_, params) -> dict:
+    sd = {}
+    for key, path, layout in entries_:
+        leaf = params
+        for part in path:
+            leaf = leaf[part]
+        sd[key] = np.array(_LAYOUTS[layout][0](np.asarray(leaf)), np.float32)
+    return sd
+
+
+def _to_flax_tree(entries_, sd) -> dict:
+    tree = {}
+    for key, path, layout in entries_:
+        t = sd[key]
+        arr = t.detach().float().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.array(_LAYOUTS[layout][1](arr), order="C", copy=True)
+    return tree
+
+
+def v2_vqgan_from_flax(params: dict, config) -> dict:
+    """The JAX ``VQModel``'s parameter dict -> a ``state_dict`` (numpy)
+    under taming's names, which the port's ``VQModel`` loads."""
+    return _from_flax(_vqgan_entries(config), params)
+
+
+def v2_vqgan_to_flax(sd: dict, config) -> dict:
+    return _to_flax_tree(_vqgan_entries(config), sd)
+
+
+def v2_clip_from_flax(params: dict, config) -> dict:
+    """The JAX ``CLIP``'s parameter dict -> a ``state_dict`` (numpy)
+    under OpenAI's names, which the port's ``CLIP`` loads."""
+    return _from_flax(_clip_entries(config), params)
+
+
+def v2_clip_to_flax(sd: dict, config) -> dict:
+    return _to_flax_tree(_clip_entries(config), sd)
+
+
+def v2_state_to_leaves(state) -> list:
+    """A port ``LatentState`` -> the flattened leaves of the JAX
+    package's ``LatentState`` (numpy): z, Adam count, mu, nu, step."""
+    return state.leaves()
+
+
+def v2_state_from_leaves(leaves, step_size: float, device=None):
+    """The inverse of ``v2_state_to_leaves``."""
+    from imagegenerator_tpu_torch.v2.engine import LatentState
+
+    return LatentState.from_leaves(leaves, step_size, device)

@@ -7,6 +7,11 @@
   ``autograd.Function``.
 * ``layernorm`` — row LayerNorm forward and backward, Triton;
   ``fused_layernorm`` is their ``autograd.Function``.
+* ``vq_argmin`` — nearest-codebook search without the (N, K) distance
+  matrix, CUDA C++ (``csrc/vq_argmin.cu``); no gradient.
+* ``scanline_lerp`` — two-tap scanline resample forward, Triton;
+  ``scanline_lerp`` is its ``autograd.Function``, whose backward is the
+  dense transposed contraction in PyTorch ops, as in the JAX package.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; each counts its launches (``launches``,

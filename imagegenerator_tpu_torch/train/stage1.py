@@ -57,6 +57,7 @@ from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
 from imagegenerator_tpu_torch.models.stackgan import StageIDiscriminator, StageIGenerator
 from imagegenerator_tpu_torch.ops.layers import Dense
 from imagegenerator_tpu_torch.train import losses, schedules
+from imagegenerator_tpu_torch.utils.device import entry_device
 
 MODULES = ("encoder", "projection", "con_augment", "generator", "critic")
 GEN_SIDE = ("encoder", "projection", "con_augment", "generator")
@@ -118,7 +119,9 @@ class Stage1System(nn.Module):
     ``con_augment``, ``generator``, ``critic``), their optimizers and the
     step count. ``FLAX_FIELDS`` maps each module to its
     ``params``/``batch_stats`` subtree. Between steps the modules are in
-    eval mode (``sample``); ``train_step`` runs them in training mode."""
+    eval mode (``sample``); ``train_step`` runs them in training mode.
+    Built on the card unless ``device`` names another (``"cpu"``,
+    ``"meta"``); without a card the default raises."""
 
     FLAX_FIELDS = {
         "encoder": ("params/encoder", None),
@@ -131,7 +134,7 @@ class Stage1System(nn.Module):
     def __init__(self, config: Stage1Config, *, device=None, generator=None):
         super().__init__()
         self.config = c = config
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=entry_device(device), generator=generator)
         self.encoder = BertEncoder(c.bert, dtype=c.compute_dtype, **kw)
         self.projection = Dense(c.bert.hidden_size, c.tem_size, dtype=c.compute_dtype, **kw)
         self.con_augment = ConditioningAugmentation(c.tem_size, c.h_dim, c.c_dim, **kw)

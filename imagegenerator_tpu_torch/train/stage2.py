@@ -16,6 +16,7 @@ from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
 from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
 from imagegenerator_tpu_torch.models.stackgan import StageIGenerator, StageIIGenerator
 from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.utils.device import entry_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,9 @@ class Stage2Config:
 class Stage2System(nn.Module):
     """Module names are the JAX state's; ``FLAX_FIELDS`` maps each to its
     subtree of ``Stage2State`` (``frozen_params``, ``frozen_gen_stats``,
-    ``params``, ``batch_stats``)."""
+    ``params``, ``batch_stats``). Built on the card unless ``device``
+    names another (``"cpu"``, ``"meta"``); without a card the default
+    raises."""
 
     FLAX_FIELDS = {
         "encoder": ("frozen_params/encoder", None),
@@ -87,7 +90,7 @@ class Stage2System(nn.Module):
     def __init__(self, config: Stage2Config, *, device=None, generator=None):
         super().__init__()
         self.config = c = config
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=entry_device(device), generator=generator)
         dt = c.compute_dtype
         self.encoder = BertEncoder(c.bert, dtype=dt, **kw)
         self.projection = Dense(c.bert.hidden_size, c.tem_size, dtype=dt, **kw)

@@ -1,1 +1,1 @@
-"""Utilities: a standard-library PNG writer."""
+"""Utilities: a standard-library PNG writer and the entry points' device rule."""

@@ -4,8 +4,13 @@ takes, up to 512, with and without dropout (keep-rate read back); the
 attention backward (CUDA C++) with and without mask and dropout; the
 LayerNorm forward and backward (Triton) over widths, row counts and
 dtypes; the ``autograd.Function``s against PyTorch's autograd through the
-plain forwards; the wrappers' launch counts and refusals; and the BERT
-encoder with the kernels on against off, forward and backward. Marked
+plain forwards; the wrappers' launch counts and refusals; the BERT
+encoder with the kernels on against off, forward and backward; the
+codebook argmin (CUDA C++) over row counts, codebook sizes and widths off
+every tile size, with planted ties; the scanline lerp (Triton) over
+shapes, strided sources and coordinate kinds, and its
+``autograd.Function``; and one v2 engine step with the two on against
+off. Marked
 ``cuda``: skipped where there is no card. On a card, from the repository
 root:
 
@@ -19,7 +24,10 @@ f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4; attention gradients
 rtol 1e-3 / atol 1e-4 in f32 and 2e-2 / 2e-2 in bf16; LayerNorm y rtol =
 atol = 1e-5, mean and rstd rtol 1e-5, dx rtol = atol = 1e-4 (f32),
 dgamma and dbeta rtol 1e-4 / atol 1e-3 (sums over the rows in another
-order)."""
+order); the argmin's indices equal the plain version's, or, on random
+inputs, name a code whose score is within 1e-5 of the row's score range
+of the plain version's; the lerp 1e-6 abs, its backward 2e-2 (the bf16
+rounding of weights and cotangent)."""
 
 import dataclasses
 
@@ -27,7 +35,8 @@ import pytest
 import torch
 
 from imagegenerator_tpu_torch.models import bert
-from imagegenerator_tpu_torch.ops.kernels import attention, layernorm
+from imagegenerator_tpu_torch.ops import quantize
+from imagegenerator_tpu_torch.ops.kernels import attention, layernorm, scanline_lerp, vq_argmin
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +308,186 @@ def test_bert_training_forward_draws_attention_seeds_on_the_host(gen):
     with pytest.raises(ValueError, match="host_generator"):
         enc(ids, mask, deterministic=False)
 
+
+
+# ------------------------------------------------------------- vq_argmin
+
+
+def _argmin_agrees(got, want, x, cb):
+    differ = (got != want).nonzero().flatten()
+    if differ.numel():
+        cbd = cb.double()
+        scores = (cbd * cbd).sum(dim=1)[None, :] - 2.0 * x[differ].double() @ cbd.t()
+        span = scores.amax(dim=1) - scores.amin(dim=1)
+        a = scores.gather(1, got[differ].long()[:, None])[:, 0]
+        b = scores.gather(1, want[differ].long()[:, None])[:, 0]
+        assert ((a - b).abs() / span).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["normal", "taming"])
+@pytest.mark.parametrize("n,k,d", [(64, 16384, 256), (1, 64, 256), (65, 65, 33), (1000, 1000, 256),
+                                   (37, 32, 8), (300, 5000, 1), (4096, 16384, 256)])
+def test_vq_argmin_kernel_matches_plain(gen, n, k, d, kind, dtype):
+    if kind == "taming":
+        cb = (torch.rand((k, d), generator=gen, device="cuda") * 2 - 1) / k
+        x = cb[torch.randint(0, k, (n,), generator=gen, device="cuda")] \
+            + (torch.rand((n, d), generator=gen, device="cuda") - 0.5) / k
+    else:
+        cb = torch.randn((k, d), generator=gen, device="cuda")
+        x = torch.randn((n, d), generator=gen, device="cuda")
+    x = x.to(dtype)
+    vq_argmin.launches = 0
+    got = vq_argmin.vq_argmin(x, cb)
+    torch.cuda.synchronize()
+    assert vq_argmin.launches == 1 and got.dtype == torch.int32 and got.shape == (n,)
+    assert 0 <= int(got.min()) and int(got.max()) < k
+    _argmin_agrees(got, vq_argmin.vq_argmin_reference(x, cb), x, cb)
+    assert torch.equal(got, vq_argmin.vq_argmin(x, cb))  # the atomics' order does not show
+
+
+@pytest.mark.parametrize("n,k,d", [(64, 16384, 256), (130, 2100, 128)])
+def test_vq_argmin_ties_go_to_the_lowest_index(gen, n, k, d):
+    cb = torch.randint(-2, 3, (k, d), generator=gen, device="cuda").float()
+    cb[k - 1], cb[k // 2 + 3], cb[k - 70] = cb[5], cb[5], cb[64]
+    x = torch.randint(-2, 3, (n, d), generator=gen, device="cuda").float()
+    x[0], x[1], x[2] = cb[5], cb[64], cb[k - 1]
+    got = vq_argmin.vq_argmin(x, cb)
+    assert got[:3].tolist() == [5, 64, 5]
+    assert torch.equal(got, vq_argmin.vq_argmin_reference(x, cb))
+    # brute force in f64, exact for these integers: the least index at the minimum
+    scores = (cb.double() ** 2).sum(dim=1)[None, :] - 2 * x.double() @ cb.double().t()
+    first = torch.where(scores == scores.amin(dim=1, keepdim=True), torch.arange(k, device="cuda"), k)
+    assert torch.equal(got.long(), first.amin(dim=1))
+    rows = torch.arange(0, k, 64, device="cuda")
+    normal = torch.randn((k, d), generator=gen, device="cuda")
+    assert torch.equal(vq_argmin.vq_argmin(normal[rows].contiguous(), normal).long(), rows)
+
+
+def test_vq_argmin_wrapper_refuses_and_quantize_switches(gen):
+    x, cb = torch.zeros((4, 8), device="cuda"), torch.zeros((16, 8), device="cuda")
+    vq_argmin.launches = 0
+    for bad_x, bad_cb in ((x.half(), cb), (x, cb.bfloat16()), (x.t(), cb), (x, cb[:, :4]),
+                          (x[None], cb), (x, cb.cpu()), (x[:0], cb)):
+        with pytest.raises((ValueError, TypeError)):
+            vq_argmin.vq_argmin(bad_x, bad_cb)
+    assert vq_argmin.launches == 0
+    z = torch.randn((2, 3, 4, 8), generator=gen, device="cuda", requires_grad=True)
+    cb = torch.randn((16, 8), generator=gen, device="cuda")
+    out = quantize.vector_quantize(z, cb)
+    assert vq_argmin.launches == 1
+    plain = quantize.vector_quantize(z, cb, use_kernel=False)
+    assert vq_argmin.launches == 1 and torch.equal(out, plain)
+    out.backward(torch.ones_like(out))
+    assert torch.equal(z.grad, torch.ones_like(z))
+
+
+# --------------------------------------------------------- scanline_lerp
+
+
+def _coords(gen, S, O, K, kind):
+    if kind == "wild":
+        return torch.rand((S, O), generator=gen, device="cuda") * (K + 40) - 20
+    steps = torch.rand((S, O), generator=gen, device="cuda") * (1.1 * K / O) + 0.45 * K / O
+    coords = steps.cumsum(dim=1) - 2.0
+    return coords.flip(1).contiguous() if kind == "decreasing" else coords
+
+
+@pytest.mark.parametrize("kind", ["increasing", "decreasing", "wild"])
+@pytest.mark.parametrize("S,C,K,O", [(4096, 3, 128, 128), (4096, 3, 128, 224), (600, 3, 200, 224),
+                                     (7, 1, 2, 5), (33, 4, 17, 300), (1, 3, 128, 1)])
+def test_scanline_lerp_kernel_matches_plain(gen, S, C, K, O, kind):
+    src = torch.rand((S, C, K), generator=gen, device="cuda")
+    coords = _coords(gen, S, O, K, kind)
+    scanline_lerp.launches = 0
+    got = scanline_lerp.scanline_lerp_fwd(src[None], coords)[0]
+    torch.cuda.synchronize()
+    assert scanline_lerp.launches == 1 and got.shape == (S, C, O) and got.is_contiguous()
+    torch.testing.assert_close(got, scanline_lerp.scanline_lerp_reference(src, coords), rtol=0, atol=1e-6)
+
+
+def test_scanline_lerp_takes_strided_four_d_views(gen):
+    img = torch.rand((8, 32, 40, 3), generator=gen, device="cuda")  # N, H, W, C
+    coords = _coords(gen, 8 * 32, 50, 40, "increasing")
+    view = img.permute(0, 1, 3, 2)  # (N, H, C, W)
+    got = scanline_lerp.scanline_lerp(view, coords)
+    want = scanline_lerp.scanline_lerp_reference(view.reshape(8 * 32, 3, 40), coords)
+    torch.testing.assert_close(got.reshape(want.shape), want, rtol=0, atol=1e-6)
+    coords2 = _coords(gen, 8 * 50, 20, 32, "decreasing")
+    view2 = got.permute(0, 3, 2, 1)  # (N, Wo, C, H): pass 2's source
+    got2 = scanline_lerp.scanline_lerp(view2, coords2)
+    want2 = scanline_lerp.scanline_lerp_reference(view2.reshape(8 * 50, 3, 32), coords2)
+    torch.testing.assert_close(got2.reshape(want2.shape), want2, rtol=0, atol=1e-6)
+
+
+def test_scanline_lerp_function_against_autograd_of_the_tent_product(gen):
+    S, C, K, O = 512, 3, 128, 224
+    src = torch.rand((S, C, K), generator=gen, device="cuda", requires_grad=True)
+    coords = _coords(gen, S, O, K, "increasing").requires_grad_(True)
+    cot = torch.randn((S, C, O), generator=gen, device="cuda")
+    scanline_lerp.launches = 0
+    scanline_lerp.scanline_lerp(src, coords).backward(cot)
+    assert scanline_lerp.launches == 1 and coords.grad is None
+    leaf = src.detach().clone().requires_grad_(True)
+    dense = torch.einsum("sok,sck->sco", scanline_lerp.tent_weights(coords.detach(), K), leaf)
+    dense.backward(cot)
+    torch.testing.assert_close(src.grad, leaf.grad, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(src.grad, scanline_lerp.scanline_lerp_bwd(cot, coords.detach(), K), rtol=0, atol=0)
+
+
+def test_scanline_lerp_wrapper_refuses(gen):
+    src, coords = torch.zeros((1, 4, 3, 8), device="cuda"), torch.zeros((4, 5), device="cuda")
+    scanline_lerp.launches = 0
+    for bad_src, bad_coords in ((src[..., :1], coords), (src, coords[:3]), (src.double(), coords),
+                                (src, coords.cpu())):
+        with pytest.raises(ValueError):
+            scanline_lerp.scanline_lerp_fwd(bad_src, bad_coords)
+    assert scanline_lerp.launches == 0
+
+
+# ---------------------------------------------------------- the v2 step
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_v2_step_kernels_on_vs_off(gen, dtype):
+    """One step of a small engine (CLIP at 64 px, 4 cutouts) from the same
+    state and draws: the argmin kernel against the plain version (equal
+    up to rounding: 1e-4 f32), and the scanline-kernel warp against the
+    dense one (its bf16 rounding: losses 2e-2)."""
+    import dataclasses
+
+    from imagegenerator_tpu_torch.v2.clip import CLIPConfig
+    from imagegenerator_tpu_torch.v2.engine import GenerateEngine
+    from imagegenerator_tpu_torch.v2.vqgan import VQGANConfig
+
+    vq_cfg = dataclasses.replace(VQGANConfig.tiny(), ch=32, embed_dim=64, z_channels=64, n_embed=1000)
+    clip_cfg = dataclasses.replace(CLIPConfig.tiny(), image_resolution=64, vision_width=64, text_width=64)
+    base = GenerateEngine(vq_cfg, clip_cfg, cutn=4, compute_dtype=dtype, warp_kernel=True,
+                          device="cuda", generator=gen)
+    states = (base.vqmodel.state_dict(), base.clip.state_dict())
+    others = {
+        "plain argmin": GenerateEngine(vq_cfg, clip_cfg, *states, cutn=4, compute_dtype=dtype,
+                                       warp_kernel=True, use_vq_kernel=False, device="cuda"),
+        "dense warp": GenerateEngine(vq_cfg, clip_cfg, *states, cutn=4, compute_dtype=dtype,
+                                     warp_kernel=False, device="cuda"),
+    }
+    z0 = base.random_token_latent(gen, 2, 16, 16)
+    prompts = (torch.randn((2, 2, 16), generator=gen, device="cuda"),
+               torch.tensor([[1.0, -0.5], [0.7, 0.0]], device="cuda"),
+               torch.full((2, 2), -float("inf"), device="cuda"))
+    draws = base.make_cutouts.draw(gen, base.image_shape(z0), "cuda")
+    vq_argmin.launches = scanline_lerp.launches = 0
+    state, losses = base.step(base.init_state(z0), None, *prompts, draws=draws)
+    assert (vq_argmin.launches, scanline_lerp.launches) == (1, 2)
+    grad = state.z.grad.clone()
+    assert torch.isfinite(losses).all() and torch.isfinite(grad).all()
+    tol = 1e-4 if dtype is None else 2e-2
+    for name, engine in others.items():
+        other, other_losses = engine.step(engine.init_state(z0), None, *prompts, draws=draws)
+        rel = ((grad - other.z.grad).norm() / other.z.grad.norm()).item()
+        if name == "plain argmin":
+            torch.testing.assert_close(losses, other_losses, rtol=tol, atol=tol)
+            assert rel <= tol
+        else:
+            torch.testing.assert_close(losses, other_losses, rtol=2e-2, atol=2e-2)
+    assert (vq_argmin.launches, scanline_lerp.launches) == (2, 4)

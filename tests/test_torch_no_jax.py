@@ -35,7 +35,7 @@ def test_importing_every_module_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 41  # v1 sampling, the stage-1 step and v2 generation
     assert bad.strip() == "[]"
 
 

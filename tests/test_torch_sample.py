@@ -156,7 +156,7 @@ def test_convert_round_trip_is_exact(stage):
 
 def test_noise_order_follows_jax():
     """Drawn from one generator: CA1 eps, then z, then CA2 eps."""
-    port = ts2.Stage2System(ts2.Stage2Config.tiny(), generator=torch.Generator().manual_seed(0))
+    port = ts2.Stage2System(ts2.Stage2Config.tiny(), device="cpu", generator=torch.Generator().manual_seed(0))
     batch = {"tem": torch.randn(3, 32)}
     gen = torch.Generator().manual_seed(11)
     drawn = [torch.randn((3, 16), generator=gen), torch.randn((3, 12), generator=gen),

@@ -266,7 +266,7 @@ def test_port_round_trip_continues_exactly():
     """to_numpy -> stage1_from_numpy keeps every tensor and the optimizer
     state: the copy's next step equals the original's bit for bit."""
     cfg = ts1.Stage1Config.tiny(n_critic=2, text_dropout=False)
-    port = ts1.Stage1System(cfg, generator=torch.Generator().manual_seed(0))
+    port = ts1.Stage1System(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, True, seed=2).items()}
     port.train_step(batch, generator=torch.Generator().manual_seed(1))
     copy = convert.stage1_from_numpy(convert.to_numpy(port), cfg, "cpu")
@@ -284,7 +284,7 @@ def test_noise_order_and_generator_draws():
     """Noise drawn from ``generator`` in the documented order (perm, then
     per iteration ca_eps, z, gp_eps) equals the same draws replayed."""
     cfg = ts1.Stage1Config.tiny(n_critic=2, text_dropout=False)
-    flat = convert.to_numpy(ts1.Stage1System(cfg, generator=torch.Generator().manual_seed(0)))
+    flat = convert.to_numpy(ts1.Stage1System(cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, False, seed=3).items()}
     gen = torch.Generator().manual_seed(5)
     noise = {"perm": torch.randperm(B, generator=gen), "ca_eps": [], "z": [], "gp_eps": []}
@@ -307,7 +307,7 @@ def test_step_with_text_dropout_runs_and_updates_every_module(fused):
     bert = dataclasses.replace(BertConfig.tiny(), fused_attention=fused, fused_ln=fused,
                                dropout_bits=16, gelu_output_bwd=True)
     cfg = ts1.Stage1Config.tiny(n_critic=2, bert=bert)
-    flat = convert.to_numpy(ts1.Stage1System(cfg, generator=torch.Generator().manual_seed(0)))
+    flat = convert.to_numpy(ts1.Stage1System(cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, True, seed=4).items()}
     runs = []
     for _ in range(2):
@@ -325,7 +325,7 @@ def test_step_with_text_dropout_runs_and_updates_every_module(fused):
 
 def test_remat_is_not_ported():
     cfg = ts1.Stage1Config.tiny(remat=True)
-    port = ts1.Stage1System(cfg)
+    port = ts1.Stage1System(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         port.train_step({k: torch.from_numpy(v) for k, v in _batch(cfg, False).items()})
 
