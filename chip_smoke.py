@@ -3,7 +3,7 @@
 and its v2 VQGAN+CLIP generation on one CUDA card.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --only v2  # build, then phase 7 alone
+    python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6)
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -17,34 +17,49 @@ non-zero exit and no result line:
    attention forward at rate 0 and with dropout (rate 0.1 and 0.5, and
    the kernel's keep-rate read back), the attention backward (dq, dk, dv,
    with and without mask, rate 0 and 0.1), the LayerNorm forward and
-   backward (dx, dgamma, dbeta).
+   backward (dx, dgamma, dbeta). The attention wrappers' counts must show
+   every bf16 case on the tensor-core kernels and every f32 case on the
+   FMA kernels. Then the tensor-core pair alone, forward and backward in
+   bf16 at (8, 128), (256, 128), (3, 40), (3, 77), (2, 1) x 768, with and
+   without mask, at rate 0, 0.1 and 0.5, and one fault planted at run
+   time for each (a forward whose padded key columns score as masked
+   keys, a backward that ignores the mask), which the checks must catch.
 3. sampling path — a full-width, seeded random-init stage-2 state written as
    ``Stage2/params.npz``, then the sampling CLI with ``--fused_attn
    --fused_ln`` for 4 captions x 2 samples (batch 8, 256 px, bf16);
    checks the 8 PNGs and that the kernels launched 12 and 25 times, once
-   per attention and LayerNorm of the one BERT forward.
+   per attention and LayerNorm of the one BERT forward, all 12 attention
+   launches on the tensor-core kernel.
 4. kernels on vs off — the same state, batch and injected noise through
    ``Stage2System`` with both kernels and with neither, in f32 (TF32 off)
    and bf16; BERT's last hidden state (which the kernels feed directly)
    and the images of ``sample`` must agree.
 5. times — medians of 5 runs after 2 warm-ups: ``sample`` at batch 8
    with kernels on and off, its three stages, and each kernel against its
-   plain version; then ``torch.profiler`` over 3 ``sample`` calls: device
-   busy time per call and the kernels that take most of it.
+   plain version (the attention forward and backward at (8, 128, 768)
+   bf16 at rate 0.1 and 0, by CUDA events in turns and by profiler device
+   time, beside the bound and the SDPA call); then ``torch.profiler``
+   over 3 ``sample`` calls: device busy time per call and the kernels
+   that take most of it. A profiler reading of 0 for a call that launched
+   kernels fails the phase.
 6. training path — ``Stage1System.train_step`` at full width, bf16, batch
    128 (caption batch doubled to 256, T = 128), with the stage-1 bench
    headline's BERT flags (fused attention, output-recovered GELU
    backward, 16-bit dropout draws) and ``fused_ln``, text dropout on:
    3 steps from a seeded random init with seeded tokens and uint8
    images; finite metrics, every module's parameters changed, and per
-   step 12 attention forwards (with dropout) and 12 backwards, 25
-   LayerNorm forwards and 25 backwards. Then kernels on vs off: one step
+   step 12 attention forwards (with dropout) and 12 backwards, all on
+   the tensor-core kernels, 25 LayerNorm forwards and 25 backwards. Then
+   kernels on vs off: one step
    from the same state, batch and noise with text dropout off, in f32
    (TF32 off) and bf16; the 4 metrics, the generator step's encoder and
    projection gradients and the generator's updated BatchNorm statistics
    must agree. Then times: the step with kernels on and off (median of 5
-   after 2 warm-ups, img/s), the training kernels against their plain
-   versions, and ``torch.profiler`` over one step.
+   after 2 warm-ups, img/s), ``torch.profiler`` over one step, and the
+   training kernels against their plain versions: the attention forward
+   and backward at (256, 128, 768) bf16, rate 0.1 and 0, the tensor-core
+   kernels, the FMA kernels launched directly on the same inputs and the
+   plain versions in turns, beside the SDPA calls and the bounds.
 
 7. v2 generation — the codebook argmin (CUDA C++) and the scanline lerp
    (Triton) against their plain versions: the argmin at (N, K, d) =
@@ -81,6 +96,7 @@ call's), the card's line from nvidia-smi, and last ``{"ok": true,
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -103,6 +119,13 @@ TOL = {  # (rtol, atol)
     "attn_o_f32": (1e-4, 1e-5),
     "attn_o_bf16": (2e-2, 2e-2),
     "attn_ml": (1e-4, 0.0),
+    # m on the tensor-core kernels: a score is a sum of 64 exact bf16
+    # products, which the tensor cores add in another order than an f32
+    # GEMM does, so two sound sums differ by about 1e-6 in absolute terms
+    # (1.4e-6 read on an H100). A row that keeps one key has a maximum near
+    # 0, where no relative limit holds; the FMA kernels add in the GEMM's
+    # order and keep the relative limit alone.
+    "attn_m_mma": (1e-4, 1e-5),
     "attn_grad_f32": (1e-3, 1e-4),
     "attn_grad_bf16": (2e-2, 2e-2),
     "ln_y": (1e-5, 1e-5),
@@ -137,9 +160,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(name, got, want, rtol, atol) -> float:
+def compare(name, got, want, rtol, atol, quiet=False) -> float:
     """Max abs and rel error of ``got`` against ``want``; raises unless
-    ``|got - want| <= atol + rtol * |want|`` everywhere."""
+    ``|got - want| <= atol + rtol * |want|`` everywhere. ``quiet`` logs
+    only a failure."""
     import torch
 
     got, want = got.double(), want.double()
@@ -147,8 +171,9 @@ def compare(name, got, want, rtol, atol) -> float:
     rel = err / want.abs().clamp_min(1e-30)
     ok = bool(torch.isfinite(got).all()) and bool((err <= atol + rtol * want.abs()).all())
     max_abs, max_rel = err.max().item(), rel.max().item()
-    log(f"  {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-        f"(rtol={rtol:g}, atol={atol:g}) {'ok' if ok else 'FAIL'}")
+    if not (ok and quiet):
+        log(f"  {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+            f"(rtol={rtol:g}, atol={atol:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_abs
@@ -187,31 +212,56 @@ def wall_ms(fn, runs=5) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 3
+
+
 def profiled(fn, calls):
     """``torch.profiler`` over ``calls`` calls after a warm-up: the host
-    ms per call and the CUDA kernel events (device time per kernel)."""
+    ms per call and the CUDA kernel events (device time per kernel).
+
+    The profiler loses the first kernel or kernels of a trace (19 of 20
+    launches recorded is usual on an H100), and now and then all of a
+    short trace. A trace that comes back with no kernel
+    event or no device time, although ``fn`` launches kernels, is run
+    again with the host's activities recorded too, at most
+    ``PROFILE_TRIES`` times, and then the phase fails: a reading of 0 is
+    never returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / calls
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return host_ms, events
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if attempt else [])
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / calls
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in events) > 0 and sum(e.self_device_time_total for e in events) > 0:
+            return host_ms, events
+        log(f"  profiler trace {attempt + 1} of {PROFILE_TRIES} recorded no device time "
+            f"({len(events)} kernel names); running it again")
+    raise AssertionError(f"torch.profiler recorded no device time in {PROFILE_TRIES} traces "
+                         "over calls that launch kernels")
 
 
 def device_ms(fn, calls=10) -> float:
-    """Device time per call: the summed time of the kernels ``fn``
-    launches. Unlike ``cuda_ms`` it leaves out the gaps in which the card
-    waits for the host to launch the next kernel."""
+    """Device time per call of ``fn``, which launches the same kernels in
+    every call: for each kernel name its mean recorded time, times its
+    launches per call. The launches per call are the recorded count over
+    ``calls``, rounded up, because the profiler loses a few launches at
+    the start of a trace (fewer than ``calls`` of any one name);
+    dividing the summed time by ``calls`` would read low by their share.
+    Unlike ``cuda_ms`` this leaves out the gaps in which the card waits
+    for the host to launch the next kernel. Every ``fn`` given here
+    launches at least one kernel, so 0 is a lost reading and ``profiled``
+    fails on it."""
     _, events = profiled(fn, calls)
-    return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    return sum(e.self_device_time_total / e.count * -(-e.count // calls) for e in events) / 1e3
 
 
 def set_tf32(enabled: bool) -> None:
@@ -239,6 +289,7 @@ def phase_kernels(attention, layernorm, gen):
     errs = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         set_tf32(False)
+        reset_counts(attention, layernorm)
         for B, T, H, nh in (ATTN_SHAPE, (3, 40, 768, 12)):
             q, k, v, mask = attention_inputs(B, T, H, dtype, gen)
             o, m, l = attention.attention_fwd(q, k, v, mask, nh)
@@ -246,10 +297,11 @@ def phase_kernels(attention, layernorm, gen):
             ro, rm, rl = attention.attention_reference(q, k, v, mask, nh)
             where = f"attention {tag} ({B}, {T}, {H})"
             err = compare(f"{where} o", o, ro, *TOL[f"attn_o_{tag}"])
-            compare(f"{where} m", m, rm, *TOL["attn_ml"])
+            compare(f"{where} m", m, rm, *TOL["attn_ml" if tag == "f32" else "attn_m_mma"])
             compare(f"{where} l", l, rl, *TOL["attn_ml"])
             if (B, T, H, nh) == ATTN_SHAPE:
                 errs["attention", tag] = err
+        check_route(attention, layernorm, tag)
         for n in (LN_SHAPE[0], 1000):
             d = LN_SHAPE[1]
             x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)
@@ -278,6 +330,7 @@ def phase_train_kernels(attention, layernorm, gen):
     B, T, H, nh = TRAIN_ATTN
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         set_tf32(False)
+        reset_counts(attention, layernorm)
         q, k, v, mask = attention_inputs(B, T, H, dtype, gen)
         for rate in (0.1, 0.5):
             o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, SEED + 7)
@@ -285,7 +338,7 @@ def phase_train_kernels(attention, layernorm, gen):
             ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, SEED + 7)
             where = f"attention dropout {rate} {tag} {TRAIN_ATTN[:3]}"
             errs["attention_dropout", tag, rate] = compare(f"{where} o", o, ro, *TOL[f"attn_o_{tag}"])
-            compare(f"{where} m", m, rm, *TOL["attn_ml"])
+            compare(f"{where} m", m, rm, *TOL["attn_ml" if tag == "f32" else "attn_m_mma"])
             compare(f"{where} l", l, rl, *TOL["attn_ml"])
             del o, m, l, ro, rm, rl
         del q, k, v
@@ -305,6 +358,7 @@ def phase_train_kernels(attention, layernorm, gen):
                       for name, g, w in zip(("dq", "dk", "dv"), got, want))
             errs["attention_bwd", tag, b, with_mask, rate] = err
             del q, k, v, do, got, want
+        check_route(attention, layernorm, tag)
         n, d = TRAIN_LN
         x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)
         dy = torch.randn((n, d), generator=gen, device="cuda")
@@ -331,6 +385,97 @@ def phase_train_kernels(attention, layernorm, gen):
         if not ok:
             raise AssertionError("attention dropout keeps the wrong share")
     return errs
+
+
+def check_route(attention, layernorm, tag: str) -> None:
+    """Since the counts were last set to 0: every bf16 attention launch
+    (all at T <= 128) went to the tensor-core kernels, every f32 one to
+    the FMA kernels."""
+    counts = read_counts(attention, layernorm)
+    total = counts["attention"] + counts["attention_bwd"]
+    mma = counts["attention_mma"] + counts["attention_bwd_mma"]
+    if total == 0 or mma != (total if tag == "bf16" else 0):
+        raise AssertionError(f"{tag}: {mma} of {total} attention launches went to the tensor cores")
+    log(f"  {tag}: {mma} of {total} attention launches on the tensor-core kernels")
+
+
+MMA_CASES = (ATTN_SHAPE[:2], TRAIN_ATTN[:2], (3, 40), (3, 77), (2, 1))
+MMA_RATES = (0.0, 0.1, 0.5)
+
+
+def check_attention_bf16(attention, where, case, nh, rate, fwd=None, bwd=None):
+    """One bf16 case through ``fwd`` and ``bwd`` (the wrappers unless
+    given) against the plain versions; one line for the case. Returns
+    the max abs errors of o and of the gradients."""
+    import torch
+
+    q, k, v, do, mask = case
+    fwd, bwd = fwd or attention.attention_fwd, bwd or attention.attention_bwd
+    o, m, l = fwd(q, k, v, mask, nh, rate, SEED + 11)
+    torch.cuda.synchronize()
+    ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, SEED + 11)
+    err_o = compare(f"{where} o", o, ro, *TOL["attn_o_bf16"], quiet=True)
+    err_m = compare(f"{where} m", m, rm, *TOL["attn_m_mma"], quiet=True)
+    err_l = compare(f"{where} l", l, rl, *TOL["attn_ml"], quiet=True)
+    got = bwd(q, k, v, do, mask, rm, rl, nh, rate, SEED + 11)
+    torch.cuda.synchronize()
+    want = attention.attention_bwd_reference(q, k, v, do, mask, rm, rl, nh, rate, SEED + 11)
+    err_g = max(compare(f"{where} {name}", g, w, *TOL["attn_grad_bf16"], quiet=True)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want))
+    log(f"  {where}: max abs o {err_o:.3e}, m {err_m:.3e}, l {err_l:.3e}, dq/dk/dv {err_g:.3e} ok")
+    return err_o, err_g
+
+
+def phase_mma_kernels(attention, layernorm, gen):
+    """Phase 2, the tensor-core attention kernels: forward and backward in
+    bf16 against the plain versions at the two main paths' shapes and at
+    ragged ones, with and without the mask, at rate 0, 0.1 and 0.5; then
+    one planted fault each, which the same checks must catch."""
+    import torch
+    import torch.nn.functional as F
+
+    log("phase 2: tensor-core attention kernels vs plain, bf16 "
+        f"(rtol, atol: o {TOL['attn_o_bf16']}, m {TOL['attn_m_mma']}, l {TOL['attn_ml']}, "
+        f"grads {TOL['attn_grad_bf16']})")
+    set_tf32(False)
+    H, nh = ATTN_SHAPE[2:]
+    reset_counts(attention, layernorm)
+
+    def case(B, T, with_mask):
+        q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+        do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+        return q, k, v, do, mask if with_mask else None
+
+    for B, T in MMA_CASES:
+        for with_mask in (True, False):
+            inputs = case(B, T, with_mask)
+            for rate in MMA_RATES:
+                check_attention_bf16(
+                    attention, f"attention bf16 ({B}, {T}, {H}) mask {'on' if with_mask else 'off'} rate {rate}",
+                    inputs, nh, rate)
+            del inputs
+    check_route(attention, layernorm, "bf16")
+
+    def padded_as_masked(q, k, v, mask, nh, rate, seed):
+        # T = 77 brought to 80 by the caller, the three padded keys marked
+        # as masked (-3e7) where the kernel scores its own padding -inf: a
+        # fully masked row then sums l over 80 keys
+        pad = -q.shape[1] % 16
+        qp, kp, vp = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        o, m, l = attention.attention_fwd(qp, kp, vp, F.pad(mask, (0, pad)), nh, rate, seed)
+        T = q.shape[1]
+        return o[:, :T], m[..., :T], l[..., :T]
+
+    def without_mask(q, k, v, do, mask, m, l, nh, rate, seed):
+        return attention.attention_bwd(q, k, v, do, None, m, l, nh, rate, seed)
+
+    inputs = case(3, 77, True)
+    must_catch("a forward that scores its padded key columns as masked keys",
+               lambda: check_attention_bf16(attention, "attention bf16 (3, 77), padding as masked",
+                                            inputs, nh, 0.0, fwd=padded_as_masked))
+    must_catch("a backward that ignores the key mask",
+               lambda: check_attention_bf16(attention, "attention bf16 (3, 77), backward without mask",
+                                            inputs, nh, 0.1, bwd=without_mask))
 
 
 def png_size(path: Path) -> tuple[int, int]:
@@ -377,8 +522,9 @@ def phase_main_path(tmp: Path, attention, layernorm):
     if len(pngs) != BATCH or sizes != {(256, 256)}:
         raise AssertionError(f"expected {BATCH} PNGs of 256x256, got {len(pngs)} {sizes}")
     # one BERT-base forward, no dropout, no backward
-    want = {"attention": 12, "attention_dropout": 0, "attention_bwd": 0,
-            "layernorm": 25, "layernorm_bwd": 0}
+    # and all 12 attention forwards on the tensor-core kernel
+    want = {"attention": 12, "attention_mma": 12, "attention_dropout": 0, "attention_bwd": 0,
+            "attention_bwd_mma": 0, "layernorm": 25, "layernorm_bwd": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     log(f"  {len(pngs)} PNGs at 256x256; launches match one BERT forward {want}")
@@ -387,13 +533,15 @@ def phase_main_path(tmp: Path, attention, layernorm):
 
 def reset_counts(attention, layernorm) -> None:
     attention.launches = attention.dropout_launches = attention.bwd_launches = 0
+    attention.mma_launches = attention.mma_bwd_launches = 0
     layernorm.launches = layernorm.bwd_launches = 0
 
 
 def read_counts(attention, layernorm) -> dict:
     return {
-        "attention": attention.launches, "attention_dropout": attention.dropout_launches,
-        "attention_bwd": attention.bwd_launches,
+        "attention": attention.launches, "attention_mma": attention.mma_launches,
+        "attention_dropout": attention.dropout_launches,
+        "attention_bwd": attention.bwd_launches, "attention_bwd_mma": attention.mma_bwd_launches,
         "layernorm": layernorm.launches, "layernorm_bwd": layernorm.bwd_launches,
     }
 
@@ -504,29 +652,26 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
     x = torch.randn(LN_SHAPE, generator=gen, device="cuda")
     scale = torch.ones(LN_SHAPE[1], device="cuda")
     bias = torch.zeros(LN_SHAPE[1], device="cuda")
-    timed = {}
-    for name, kernel, plain in (
-        ("attention", lambda: attention.attention_fwd(q, k, v, mask, nh),
-         lambda: attention.attention_reference(q, k, v, mask, nh)),
-        ("layernorm", lambda: layernorm.layernorm_fwd(x, scale, bias, 1e-12),
-         lambda: layernorm.layernorm_reference(x, scale, bias, 1e-12)),
-    ):
-        timed[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain)}
-        dev = (device_ms(kernel), device_ms(plain))
-        shape = f"bf16 {ATTN_SHAPE[:3]}" if name == "attention" else f"f32 {LN_SHAPE}"
-        log(f"  {name} {shape}: kernel {timed[name]['ms']:.4f} ms, plain "
-            f"{timed[name]['plain_ms']:.4f} ms back to back by CUDA events; device time "
-            f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms (inputs L2-resident) [{card}]")
-    # 24 inputs of 3 MB (72 MB, more than the 50 MB L2) taken in turn, so
-    # each launch reads its input from device memory
+    # the sampling path runs the forward at rate 0: that row goes into the
+    # kernels' line; the others are this shape's times for the record
+    timed = {"attention": kernel_entry(attention_times(attention, ATTN_SHAPE, gen, card, fma=False)["fwd", 0.0])}
+    kernel = lambda: layernorm.layernorm_fwd(x, scale, bias, 1e-12)
+    plain = lambda: layernorm.layernorm_reference(x, scale, bias, 1e-12)
+    timed["layernorm"] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain)}
+    dev = (device_ms(kernel), device_ms(plain))
+    log(f"  layernorm f32 {LN_SHAPE}: kernel {timed['layernorm']['ms']:.4f} ms, plain "
+        f"{timed['layernorm']['plain_ms']:.4f} ms back to back by CUDA events; device time "
+        f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms (inputs L2-resident) [{card}]")
     lib = library_times((q, k, v, mask, None, nh), (x, scale, bias, None))
-    timed["attention"].update(library_ms=lib["sdpa_fwd"], **attention_bound(ATTN_SHAPE, 2, False))
+    timed["attention"].update(library_ms=lib["sdpa_fwd"])
     timed["layernorm"].update(library_ms=lib["ln_fwd"], **layernorm_bound(LN_SHAPE, False))
     for name in ("attention", "layernorm"):
         t = timed[name]
         log(f"  {name}: library call {t['library_ms']:.4f} ms "
             f"({'F.scaled_dot_product_attention' if name == 'attention' else 'F.layer_norm'}), "
             f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
+    # 24 inputs of 3 MB (72 MB, more than the 50 MB L2) taken in turn, so
+    # each launch reads its input from device memory
     xs = [torch.randn(LN_SHAPE, generator=gen, device="cuda") for _ in range(24)]
     turn = iter(range(10**9))
     ln_hbm = device_ms(lambda: layernorm.layernorm_fwd(xs[next(turn) % 24], scale, bias, 1e-12), calls=24)
@@ -534,6 +679,60 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
     log(f"  layernorm f32 {LN_SHAPE}, inputs rotated through 72 MB: device time "
         f"{ln_hbm:.4f} ms, {moved / ln_hbm / 1e9:.3f} TB/s [{card}]")
     return sample_ms, timed["attention"], timed["layernorm"]
+
+
+def attention_times(attention, shape, gen, card, fma: bool) -> dict:
+    """Times of the bf16 attention forward and backward at ``shape``, at
+    rate 0.1 and 0: the tensor-core kernels through the wrappers, the plain
+    versions and, with ``fma``, the FMA kernels launched directly on the
+    same inputs; each by CUDA events back to back, taken in turns (plain,
+    tensor cores, FMA, FMA, tensor cores, plain; the mean of a route's two
+    turns is kept), and by profiler device time. Returns
+    ``{(which, rate): {"ms", "device_ms", "plain_ms", "plain_device_ms",
+    "fma_ms", "fma_device_ms", "bound_ms", "bound_by"}}``."""
+    import torch
+
+    B, T, H, nh = shape
+    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+    inner, calls = (20, 10) if B <= 32 else (5, 5)
+    out = {}
+    for rate in (0.1, 0.0):
+        drop = attention._dropout_args(rate, SEED)
+        _, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, SEED)
+        routes = {
+            "fwd": {"mma": lambda: attention.attention_fwd(q, k, v, mask, nh, rate, SEED),
+                    "fma": lambda: attention._launch_fwd(q, k, v, mask, nh, drop, "fma"),
+                    "plain": lambda: attention.attention_reference(q, k, v, mask, nh, rate, SEED)},
+            "bwd": {"mma": lambda: attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, SEED),
+                    "fma": lambda: attention._launch_bwd(q, k, v, do, mask, m, l, nh, drop, "fma"),
+                    "plain": lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, SEED)},
+        }
+        for which, fns in routes.items():
+            turns = ["plain", "mma"] + (["fma", "fma"] if fma else []) + ["mma", "plain"]
+            read = {name: [] for name in turns}
+            for name in turns:
+                read[name].append(cuda_ms(fns[name], inner=inner))
+            dev = {name: device_ms(fns[name], calls=calls) for name in read}
+            t = {"ms": statistics.mean(read["mma"]), "device_ms": dev["mma"],
+                 "plain_ms": statistics.mean(read["plain"]), "plain_device_ms": dev["plain"],
+                 "fma_ms": statistics.mean(read["fma"]) if fma else None,
+                 "fma_device_ms": dev.get("fma"), **attention_bound(shape, 2, which == "bwd")}
+            out[which, rate] = t
+            turns_of = lambda name: " and ".join(f"{x:.4f}" for x in read[name])
+            log(f"  attention {which} bf16 {shape[:3]} rate {rate}: tensor-core kernel {t['ms']:.4f} ms "
+                f"back to back by CUDA events (turns {turns_of('mma')}), device {t['device_ms']:.4f} ms; "
+                f"plain {t['plain_ms']:.4f} ms ({turns_of('plain')}), device {t['plain_device_ms']:.4f} ms; "
+                + (f"FMA kernel {t['fma_ms']:.4f} ms ({turns_of('fma')}), device {t['fma_device_ms']:.4f} ms; "
+                   if fma else "")
+                + f"bound {t['bound_ms']:.5f} ms by {t['bound_by']}, device / bound "
+                f"{t['device_ms'] / t['bound_ms']:.2f} [{card}]")
+    return out
+
+
+def kernel_entry(t: dict) -> dict:
+    """The timing keys of a kernel's entry in the ``kernels`` line."""
+    return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
 
 def train_config(fused: bool, text_dropout: bool, dtype):
@@ -610,8 +809,8 @@ def phase_train(attention, layernorm, gen, card):
     n_params = sum(p.numel() for p in system.parameters())
     log(f"  full-width random init, {n_params / 1e6:.1f}M parameters, "
         f"{time.perf_counter() - t0:.1f} s")
-    per_step = {"attention": 12, "attention_dropout": 12, "attention_bwd": 12,
-                "layernorm": 25, "layernorm_bwd": 25}
+    per_step = {"attention": 12, "attention_mma": 12, "attention_dropout": 12, "attention_bwd": 12,
+                "attention_bwd_mma": 12, "layernorm": 25, "layernorm_bwd": 25}
     totals = dict.fromkeys(per_step, 0)
     for i in range(TRAIN_STEPS):
         reset_counts(attention, layernorm)
@@ -708,44 +907,39 @@ def phase_train(attention, layernorm, gen, card):
             log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x {e.key[:90]}")
     del systems, state
 
-    B, T, H, nh = TRAIN_ATTN
-    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
-    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
-    _, m, l = attention.attention_fwd(q, k, v, mask, nh, 0.1, SEED)
+    at = attention_times(attention, TRAIN_ATTN, gen, card, fma=True)
+    timed = {"attention_fwd_dropout": kernel_entry(at["fwd", 0.1]),
+             "attention_bwd": kernel_entry(at["bwd", 0.1])}
+    for which in ("fwd", "bwd"):
+        t = at[which, 0.1]
+        log(f"  attention {which} bf16 {TRAIN_ATTN[:3]} rate 0.1, tensor-core kernel over FMA kernel: "
+            f"device {t['device_ms'] / t['fma_device_ms']:.3f}, back to back {t['ms'] / t['fma_ms']:.3f} [{card}]")
     n, d = TRAIN_LN
     x = torch.randn((n, d), generator=gen, device="cuda")
     dy = torch.randn((n, d), generator=gen, device="cuda")
     scale = torch.ones(d, device="cuda")
     _, mean, rstd = layernorm.layernorm_fwd(x, scale, scale, 1e-12)
-    timed = {}
-    for name, kernel, plain in (
-        ("attention_fwd_dropout", lambda: attention.attention_fwd(q, k, v, mask, nh, 0.1, SEED),
-         lambda: attention.attention_reference(q, k, v, mask, nh, 0.1, SEED)),
-        ("attention_bwd", lambda: attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, SEED),
-         lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, 0.1, SEED)),
-        ("layernorm_bwd", lambda: layernorm.layernorm_bwd(dy, x, mean, rstd, scale, scale),
-         lambda: layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, scale)),
-    ):
-        timed[name] = {"ms": cuda_ms(kernel, inner=5), "plain_ms": cuda_ms(plain, inner=5)}
-        dev = (device_ms(kernel, calls=5), device_ms(plain, calls=5))
-        shape = f"f32 {TRAIN_LN}" if name == "layernorm_bwd" else f"bf16 {TRAIN_ATTN[:3]}, rate 0.1"
-        log(f"  {name} {shape}: kernel {timed[name]['ms']:.4f} ms, plain "
-            f"{timed[name]['plain_ms']:.4f} ms back to back by CUDA events; device time "
-            f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms [{card}]")
+    kernel = lambda: layernorm.layernorm_bwd(dy, x, mean, rstd, scale, scale)
+    plain = lambda: layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, scale)
+    timed["layernorm_bwd"] = {"ms": cuda_ms(kernel, inner=5), "plain_ms": cuda_ms(plain, inner=5)}
+    dev = (device_ms(kernel, calls=5), device_ms(plain, calls=5))
+    log(f"  layernorm_bwd f32 {TRAIN_LN}: kernel {timed['layernorm_bwd']['ms']:.4f} ms, plain "
+        f"{timed['layernorm_bwd']['plain_ms']:.4f} ms back to back by CUDA events; device time "
+        f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms [{card}]")
     # the library calls compute the functions at rate 0: none draws the
-    # package's counter-hash dropout, so the kernels are timed at rate 0
-    # beside them and the two dropout rows of the kernels' line have none
-    _, m0, l0 = attention.attention_fwd(q, k, v, mask, nh)
-    rate0 = {"attention_fwd": cuda_ms(lambda: attention.attention_fwd(q, k, v, mask, nh), inner=5),
-             "attention_bwd": cuda_ms(lambda: attention.attention_bwd(q, k, v, do, mask, m0, l0, nh), inner=5)}
+    # package's counter-hash dropout, so they stand beside the kernels'
+    # rate-0 times and the two dropout rows of the kernels' line have none
+    B, T, H, nh = TRAIN_ATTN
+    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
     lib = library_times((q, k, v, mask, do, nh), (x, scale, scale, dy))
-    log(f"  at rate 0, bf16 {TRAIN_ATTN[:3]}: attention_fwd kernel {rate0['attention_fwd']:.4f} ms, "
+    log(f"  at rate 0, bf16 {TRAIN_ATTN[:3]}: attention_fwd kernel {at['fwd', 0.0]['ms']:.4f} ms, "
         f"F.scaled_dot_product_attention {lib['sdpa_fwd']:.4f} ms; attention_bwd kernel "
-        f"{rate0['attention_bwd']:.4f} ms, its autograd backward {lib['sdpa_bwd']:.4f} ms [{card}]")
+        f"{at['bwd', 0.0]['ms']:.4f} ms, its autograd backward {lib['sdpa_bwd']:.4f} ms [{card}]")
     log(f"  layernorm f32 {TRAIN_LN}: F.layer_norm {lib['ln_fwd']:.4f} ms, its autograd backward "
         f"{lib['ln_bwd']:.4f} ms [{card}]")
-    timed["attention_fwd_dropout"].update(library_ms=None, **attention_bound(TRAIN_ATTN, 2, False))
-    timed["attention_bwd"].update(library_ms=None, **attention_bound(TRAIN_ATTN, 2, True))
+    timed["attention_fwd_dropout"].update(library_ms=None)
+    timed["attention_bwd"].update(library_ms=None)
     timed["layernorm_bwd"].update(library_ms=lib["ln_bwd"], **layernorm_bound(TRAIN_LN, True))
     for name, t in timed.items():
         log(f"  {name}: bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
@@ -1289,7 +1483,7 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["v2"], default=None,
+    parser.add_argument("--only", choices=["train", "v2"], default=None,
                         help="build, then run one slice's phases alone (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1318,10 +1512,16 @@ def main() -> int:
     log(f"  nvcc, {len(_build.names())} sources in parallel: {time.perf_counter() - t0:.2f} s "
         f"({_build.build_dir()})")
     for name in _build.names():
-        _build.library(name)
+        lib = _build.library(name)
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '\w*\d([a-z_]+_kernel)(\w*)'", line)
+            if entry:  # the kernel's name and what is left of its mangled signature
+                log(f"    {name}: {entry.group(1)} <{entry.group(2)[:24]}>")
+            elif "registers" in line or "spill" in line:
+                log(f"    {name}:   {line.strip()}")
+        if name in ("attention_fwd", "attention_bwd"):
+            log(f"    {name}: the tensor-core kernel takes {getattr(lib, name + '_mma_smem')()} bytes "
+                "of dynamic shared memory a block")
     import triton
 
     t0 = time.perf_counter()
@@ -1336,12 +1536,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.only == "train":
+        phase_train(attention, layernorm, gen, card)
     if args.only == "v2":
         phase_v2(vq_argmin, scanline_lerp, gen, card)
+    if args.only:
         print(card)
         return 0
     errs = phase_kernels(attention, layernorm, gen)
     errs.update(phase_train_kernels(attention, layernorm, gen))
+    phase_mma_kernels(attention, layernorm, gen)
     with tempfile.TemporaryDirectory() as tmp:
         flat, launches = phase_main_path(Path(tmp), attention, layernorm)
     batch, noise = path_inputs(gen)

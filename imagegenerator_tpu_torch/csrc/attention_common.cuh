@@ -1,10 +1,12 @@
 // Helpers shared by the attention forward and backward kernels
-// (attention_fwd.cu, attention_bwd.cu).
+// (attention_fwd.cu, attention_bwd.cu), both routes: the dropout
+// keep-mask, and the f32 tile staging of the FMA route (f32 inputs, or
+// 128 < T <= 512). The tensor-core route's pieces are in attention_mma.cuh.
 //
 // Layout: q, k, v (and do, dq, dk, dv) are (B, T, H) with H = heads * 64,
-// head h in columns [64h, 64h + 64). A block stages 64-row tiles of one
-// head as f32 in shared memory with the odd row stride 65, so the 16 rows
-// a warp touches fall in distinct banks.
+// head h in columns [64h, 64h + 64). A block of the FMA route stages
+// 64-row tiles of one head as f32 in shared memory with the odd row stride
+// 65, so the 16 rows a warp touches fall in distinct banks.
 //
 // Dropout keep-mask: the counter hash of the JAX package's interpret mode
 // (imagegenerator_tpu/ops/pallas/attention.py::_hash_bits, _keep_mask).
@@ -73,14 +75,18 @@ __device__ __forceinline__ unsigned dropout_salt(int seed, int b, int head) {
   return (unsigned)seed + (unsigned)b * 1000003u + (unsigned)head * 7919u;
 }
 
-__device__ __forceinline__ unsigned hash_bits(unsigned r, unsigned c, unsigned salt) {
-  unsigned x = r * 0x9E3779B9u + c * 0x85EBCA6Bu + salt * 0xC2B2AE35u;
+// The murmur3 finalizer.
+__device__ __forceinline__ unsigned hash_finish(unsigned x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ unsigned hash_bits(unsigned r, unsigned c, unsigned salt) {
+  return hash_finish(r * 0x9E3779B9u + c * 0x85EBCA6Bu + salt * 0xC2B2AE35u);
 }
 
 // Dropout arguments passed by value from the wrapper.

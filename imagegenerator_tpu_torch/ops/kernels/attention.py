@@ -6,20 +6,31 @@ Replaces ``imagegenerator_tpu/ops/pallas/attention.py``: ``_pallas_fwd``
 which BERT reaches through ``fused_attention`` when
 ``BertConfig.fused_attention`` is set. On a CUDA tensor the wrappers
 launch the hand-written kernels in ``csrc/attention_fwd.cu`` and
-``csrc/attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by ``_build``);
+``csrc/attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by ``_build``;
+their tensor-core pieces are in ``csrc/attention_mma.cuh``);
 on a CPU tensor they run ``attention_reference`` and
 ``attention_bwd_reference``, the plain PyTorch versions of the same
 functions. ``fused_attention`` is a ``torch.autograd.Function`` whose
 forward saves what the TPU custom VJP saves (q, k, v, mask, m, l).
 
-What bounds them on the card: not device memory, nor at BERT's shapes
-the products. The plain versions write and reread the (B, heads, T, T)
-scores and probabilities between a dozen small kernels each way. The
-kernels keep each head's (64, T) tile in shared memory, touch device
-memory only for q, k, v, do, o, m, l and the gradients, and run their
-products on the FMA units (tensor cores are later work, PERF.md).
+What bounds them on the card: bytes. Per head the products are 128 x 128
+x 64, microseconds of tensor-core time, while q, k, v, o (and do, dq, dk,
+dv) each cross device memory once. The plain versions write and reread
+the (B, heads, T, T) scores and probabilities between a dozen small
+kernels each way; the kernels keep them on the SM.
 
-Numerics follow the TPU kernels: f32 products and sums, masked logits
+Two routes, one rule on shapes (``kernel_route``): bf16 inputs with
+T <= 128, every shape the system runs, take the tensor-core kernels
+(``mma.sync`` m16n8k16 on bf16 tiles in shared memory, scores and
+probabilities in registers, the backward one launch with each of its
+five products once); f32 inputs, where tensor cores would mean TF32, and
+128 < T <= 512 take the FMA kernels (f32 tiles in shared memory, the
+backward two launches with the row term D through a device buffer). It
+is no fallback: on a CUDA tensor the wrapper launches the kernel the rule
+names or raises.
+
+Numerics follow the TPU kernels on both routes: products and sums in f32
+(of exact bf16 products on the tensor cores), masked logits
 filled with -3e7 (so a fully masked row is uniform), ``(m, l)`` kept
 apart rather than as a log-sum-exp so the backward recomputes the
 probabilities with no reductions, probabilities rounded to v's dtype
@@ -46,24 +57,29 @@ from imagegenerator_tpu_torch.ops.kernels import _build
 BIG_NEG = -3e7
 HEAD_DIM = 64
 MAX_SEQ = 512
+MMA_MAX_SEQ = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
 # Kernel launches so far; the wrappers add one per launch and nothing
 # else does. ``launches`` counts forward launches at any rate,
 # ``dropout_launches`` those of them with dropout on, ``bwd_launches``
-# backward launches. Set them to 0 to count a run.
+# backward launches, both over the two routes; ``mma_launches`` and
+# ``mma_bwd_launches`` count those of them that went to the tensor-core
+# kernels. Set them to 0 to count a run.
 launches = 0
 dropout_launches = 0
 bwd_launches = 0
+mma_launches = 0
+mma_bwd_launches = 0
 
 
 def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
     """Shapes the JAX package's fused path takes; off them BERT runs its
     einsum attention. The port applies this rule only to CPU tensors, to
     stay with the JAX encoder. On the card ``fused_attention`` always goes
-    to the kernel, which takes head dim 64 and any 0 < T <= 512 and
-    raises otherwise."""
+    to the kernels ``kernel_route`` names, which take head dim 64 and any
+    0 < T <= 512 and raise otherwise."""
     hd = hidden // num_heads
     return hidden % num_heads == 0 and seq_len % 8 == 0 and hd % 8 == 0 and hd >= 8
 
@@ -186,11 +202,17 @@ def attention_bwd_reference(q, k, v, do, mask, m, l, num_heads: int, rate: float
 # ------------------------------------------------------------------ kernels
 
 
+def kernel_route(dtype, seq_len: int) -> str:
+    """Which kernels a CUDA tensor of ``dtype`` with T = ``seq_len`` takes:
+    ``"mma"`` (tensor cores) for bf16 at T <= 128, else ``"fma"``."""
+    return "mma" if dtype == torch.bfloat16 and seq_len <= MMA_MAX_SEQ else "fma"
+
+
 @functools.cache
 def _entry(name):
     fn = getattr(_build.library(name), name)
     n_ptr = 7 if name == "attention_fwd" else 11
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
         ctypes.c_void_p,
     ]
@@ -245,14 +267,10 @@ def _device(q):
     return q.device.type
 
 
-def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 0):
-    """``(o, m, l)`` of the forward, the outputs of ``_pallas_fwd``:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    drop = _dropout_args(rate, seed)
-    if _device(q) == "cpu":
-        return attention_reference(q, k, v, mask, num_heads, rate, seed)
-    _check_cuda(q, (("k", k), ("v", v)), mask, num_heads)
-    global launches, dropout_launches
+def _launch_fwd(q, k, v, mask, num_heads, drop, route):
+    """Launch the forward kernel of ``route`` on checked CUDA tensors."""
+    global launches, dropout_launches, mma_launches
+    mma = _route_arg(route, (q, k, v))
     B, T, H = q.shape
     o = torch.empty_like(q)
     m = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
@@ -262,40 +280,73 @@ def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *drop,
+            B, T, H, num_heads, _DTYPES[q.dtype], mma, 1.0 / math.sqrt(HEAD_DIM), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_fwd")
     launches += 1
     dropout_launches += drop[0]
+    mma_launches += mma
     return o, m, l
 
 
-def attention_bwd(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0, seed: int = 0):
-    """``(dq, dk, dv)`` of the backward, the outputs of ``_pallas_bwd``,
-    from the forward's inputs, ``do`` in q's dtype and its ``(m, l)``:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    drop = _dropout_args(rate, seed)
-    if _device(q) == "cpu":
-        return attention_bwd_reference(q, k, v, do, mask, m, l, num_heads, rate, seed)
-    _check_cuda(q, (("k", k), ("v", v), ("do", do)), mask, num_heads)
-    _check_stats(q, m, l, num_heads)
-    global bwd_launches
+def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
+    """Launch the backward kernel (``"mma"``) or kernels (``"fma"``) of
+    ``route`` on checked CUDA tensors."""
+    global bwd_launches, mma_bwd_launches
+    mma = _route_arg(route, (q, k, v, do))
     B, T, H = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    d_row = torch.empty_like(m)  # the row term D, written by the first launch
+    # the row term D, from the FMA route's first launch to its second
+    d_row = None if mma else torch.empty_like(m)
     with torch.cuda.device(q.device):
         rc = _entry("attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             None if mask is None else mask.data_ptr(),
             m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            d_row.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *drop,
+            None if d_row is None else d_row.data_ptr(),
+            B, T, H, num_heads, _DTYPES[q.dtype], mma, 1.0 / math.sqrt(HEAD_DIM), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_bwd")
     bwd_launches += 1
+    mma_bwd_launches += mma
     return dq, dk, dv
+
+
+def _route_arg(route: str, tensors) -> int:
+    """The C entry points' ``route`` argument: 1 for the tensor-core
+    kernels, which copy 16 bytes a thread and so need aligned tensors."""
+    if route != "mma":
+        return 0
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("attention: the tensor-core kernels need q, k, v (and do) "
+                         "16-byte aligned")
+    return 1
+
+
+def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 0):
+    """``(o, m, l)`` of the forward, the outputs of ``_pallas_fwd``: on a
+    CUDA tensor the kernel ``kernel_route`` names, on a CPU tensor the
+    plain version."""
+    drop = _dropout_args(rate, seed)
+    if _device(q) == "cpu":
+        return attention_reference(q, k, v, mask, num_heads, rate, seed)
+    _check_cuda(q, (("k", k), ("v", v)), mask, num_heads)
+    return _launch_fwd(q, k, v, mask, num_heads, drop, kernel_route(q.dtype, q.shape[1]))
+
+
+def attention_bwd(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0, seed: int = 0):
+    """``(dq, dk, dv)`` of the backward, the outputs of ``_pallas_bwd``,
+    from the forward's inputs, ``do`` in q's dtype and its ``(m, l)``: on a
+    CUDA tensor the kernel ``kernel_route`` names, on a CPU tensor the
+    plain version."""
+    drop = _dropout_args(rate, seed)
+    if _device(q) == "cpu":
+        return attention_bwd_reference(q, k, v, do, mask, m, l, num_heads, rate, seed)
+    _check_cuda(q, (("k", k), ("v", v), ("do", do)), mask, num_heads)
+    _check_stats(q, m, l, num_heads)
+    return _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, kernel_route(q.dtype, q.shape[1]))
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -4,8 +4,9 @@ run in interpret mode, output by output (o, m, l); with dropout, the
 keep-mask bit for bit against the interpret-mode ``_keep_mask`` and the
 output and its vjp (dq, dk, dv) against JAX ``fused_attention(...,
 interpret=True)`` with the same seed, with and without a mask and with a
-fully masked row; and the wrappers' contract (a CPU tensor takes the
-plain version and counts no launch). The CUDA kernels themselves are
+fully masked row; the wrappers' contract (a CPU tensor takes the
+plain version and counts no launch) and the (dtype, T) rule that names
+the kernels a CUDA tensor takes. The CUDA kernels themselves are
 held to the plain versions on the card by ``chip_smoke.py`` and
 ``tests/test_torch_kernels_cuda.py``.
 
@@ -90,6 +91,61 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     assert attention.launches == 0
     want = attention.attention_reference(q, k, v, mask, 2)[0]
     assert torch.equal(o, want)
+
+
+@pytest.mark.parametrize("dtype,T,route", [
+    (torch.bfloat16, 1, "mma"), (torch.bfloat16, 77, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 129, "fma"), (torch.bfloat16, 512, "fma"),
+    (torch.float32, 1, "fma"), (torch.float32, 77, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 129, "fma"), (torch.float32, 512, "fma"),
+])
+def test_kernel_route_is_a_rule_on_dtype_and_length(dtype, T, route):
+    """Tensor cores for bf16 at T <= 128, the FMA kernels for f32 (which
+    would mean TF32) and for longer sequences."""
+    assert attention.kernel_route(dtype, T) == route
+    assert attention.MMA_MAX_SEQ == 128 and attention.MAX_SEQ == 512
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 77), (torch.bfloat16, 128), (torch.float32, 129)])
+def test_cpu_tensor_takes_plain_version_whatever_the_route(dtype, T):
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, T, 64)).astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    attention.launches = attention.mma_launches = 0
+    attention.bwd_launches = attention.mma_bwd_launches = 0
+    o, m, l = attention.attention_fwd(q, k, v, None, 1, 0.1, 3)
+    grads = attention.attention_bwd(q, k, v, do, None, m, l, 1, 0.1, 3)
+    assert (attention.launches, attention.mma_launches) == (0, 0)
+    assert (attention.bwd_launches, attention.mma_bwd_launches) == (0, 0)
+    want = attention.attention_reference(q, k, v, None, 1, 0.1, 3)
+    assert all(torch.equal(a, b) for a, b in zip((o, m, l), want))
+    want = attention.attention_bwd_reference(q, k, v, do, None, m, l, 1, 0.1, 3)
+    assert all(torch.equal(a, b) and a.dtype == dtype for a, b in zip(grads, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fully_masked_row_sums_over_its_own_77_keys(dtype):
+    """T = 77 is padded to 80 or 128 inside a kernel. The plain version the
+    kernels are held to counts no padding: a fully masked row has
+    m = -3e7, l = 77 and uniform probabilities 1 / 77 (o is the mean of
+    v, dv spreads do evenly), and no gradient reaches its q and k."""
+    B, T, H, nh = 3, 77, 128, 2
+    q, k, v, mask = _inputs(B, T, H, "fully_masked_row", seed=6)
+    do = np.random.default_rng(7).standard_normal((B, T, H)).astype(np.float32)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
+    mask = torch.from_numpy(mask)
+    o, m, l = attention.attention_reference(q, k, v, mask, nh)
+    np.testing.assert_array_equal(m[-1].numpy(), np.float32(attention.BIG_NEG))
+    np.testing.assert_array_equal(l[-1].numpy(), np.float32(T))
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    mean_v = v[-1].float().mean(dim=0)
+    np.testing.assert_allclose(o[-1].float().numpy(), mean_v.expand(T, H).numpy(), **tol)
+    dq, dk, dv = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh)
+    assert not dq[-1].any() and not dk[-1].any()
+    uniform = (do[-1].float().sum(dim=0) / T).expand(T, H)
+    np.testing.assert_allclose(dv[-1].float().numpy(), uniform.numpy(), **tol)
+    # a row with kept keys is not touched by the masked ones: l counts them
+    assert float(l[0].min()) >= 1.0 and float(l[1].max()) <= float(mask[1].sum())
 
 
 @pytest.mark.parametrize("seed", [0, 123456789, -987654321, 2**31 - 1])

@@ -1,7 +1,9 @@
 """The port's hand-written kernels against their plain versions on a CUDA
 card: the attention forward (CUDA C++) over the sequence lengths it
 takes, up to 512, with and without dropout (keep-rate read back); the
-attention backward (CUDA C++) with and without mask and dropout; the
+attention backward (CUDA C++) with and without mask and dropout, both on
+the route ``attention.kernel_route`` names (tensor cores for bf16 at
+T <= 128, FMA units otherwise; the counters say which ran); the
 LayerNorm forward and backward (Triton) over widths, row counts and
 dtypes; the ``autograd.Function``s against PyTorch's autograd through the
 plain forwards; the wrappers' launch counts and refusals; the BERT
@@ -20,7 +22,9 @@ root:
 machine need not have; these tests import only PyTorch and the port.)
 
 Tolerances as in ``chip_smoke.py``: attention o rtol 1e-4 / atol 1e-5 in
-f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4; attention gradients
+f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4 (m with atol 1e-5 on the
+tensor-core kernels, which add a score's products in another order);
+attention gradients
 rtol 1e-3 / atol 1e-4 in f32 and 2e-2 / 2e-2 in bf16; LayerNorm y rtol =
 atol = 1e-5, mean and rstd rtol 1e-5, dx rtol = atol = 1e-4 (f32),
 dgamma and dbeta rtol 1e-4 / atol 1e-3 (sums over the rows in another
@@ -58,23 +62,33 @@ def _mask(B, T):
     return mask
 
 
+GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# m is a score: the tensor cores add its 64 exact bf16 products in another
+# order than the plain version's f32 GEMM, about 1e-6 apart in absolute
+# terms, and a row whose maximum is near 0 has no relative agreement
+M_TOL = {torch.float32: dict(rtol=1e-4, atol=0), torch.bfloat16: dict(rtol=1e-4, atol=1e-5)}
+OUT_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,with_mask", [(8, 128, True), (3, 40, True), (2, 8, True),
                                            (2, 256, False), (2, 512, True), (1, 72, False),
-                                           (4, 77, True), (2, 1, False)])
+                                           (4, 77, True), (2, 1, False), (1, 16, True),
+                                           (1, 100, False), (3, 127, True), (1, 128, True)])
 def test_attention_kernel_matches_plain(gen, B, T, with_mask, dtype):
     H, nh = 768, 12
     q, k, v = (torch.randn((B, T, H), generator=gen, device="cuda").to(dtype) for _ in range(3))
     mask = _mask(B, T) if with_mask else None
-    attention.launches = 0
+    attention.launches = attention.mma_launches = 0
     got = attention.attention_fwd(q, k, v, mask, nh)
     torch.cuda.synchronize()
     assert attention.launches == 1
+    assert attention.mma_launches == (dtype == torch.bfloat16 and T <= 128)
     want = attention.attention_reference(q, k, v, mask, nh)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
-    for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[1], want[1], **M_TOL[dtype])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize(
@@ -115,21 +129,20 @@ def test_attention_wrappers_refuse_bad_rate_and_stats(gen):
     assert attention.launches == 0 and attention.bwd_launches == 0
 
 
-GRAD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
-
-
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.1, 0.5])
-def test_attention_dropout_forward_matches_plain(gen, rate):
+def test_attention_dropout_forward_matches_plain(gen, rate, dtype):
     B, T, H, nh = 16, 128, 768, 12
-    q, k, v = (torch.randn((B, T, H), generator=gen, device="cuda") for _ in range(3))
+    q, k, v = (torch.randn((B, T, H), generator=gen, device="cuda").to(dtype) for _ in range(3))
     mask = _mask(B, T)
-    attention.launches = attention.dropout_launches = 0
+    attention.launches = attention.dropout_launches = attention.mma_launches = 0
     o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, 1234)
     torch.cuda.synchronize()
     assert attention.launches == attention.dropout_launches == 1
+    assert attention.mma_launches == (dtype == torch.bfloat16)
     ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, 1234)
-    torch.testing.assert_close(o, ro, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(m, rm, rtol=1e-4, atol=0)
+    torch.testing.assert_close(o.float(), ro.float(), **OUT_TOL[dtype])
+    torch.testing.assert_close(m, rm, **M_TOL[dtype])
     torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
     keep = attention.keep_mask(B, nh, T, 1234, rate, "cuda").float().mean().item()
     assert abs(keep - (1 - rate)) < 0.005
@@ -141,16 +154,19 @@ def test_attention_dropout_forward_matches_plain(gen, rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,T,with_mask", [(8, 128, True), (4, 128, False), (3, 77, True),
-                                           (2, 1, False), (2, 512, True), (3, 40, True)])
+                                           (2, 1, False), (2, 512, True), (3, 40, True),
+                                           (1, 16, True), (1, 100, False), (3, 127, True),
+                                           (1, 128, False)])
 def test_attention_backward_matches_plain(gen, B, T, with_mask, rate, dtype):
     H, nh = 768, 12
     q, k, v, do = (torch.randn((B, T, H), generator=gen, device="cuda").to(dtype) for _ in range(4))
     mask = _mask(B, T) if with_mask else None
     _, m, l = attention.attention_reference(q, k, v, mask, nh, rate, 99)
-    attention.bwd_launches = 0
+    attention.bwd_launches = attention.mma_bwd_launches = 0
     got = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, 99)
     torch.cuda.synchronize()
     assert attention.bwd_launches == 1
+    assert attention.mma_bwd_launches == (dtype == torch.bfloat16 and T <= 128)
     want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, 99)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype, name
@@ -159,22 +175,67 @@ def test_attention_backward_matches_plain(gen, B, T, with_mask, rate, dtype):
         assert not got[0][-1].any() and not got[1][-1].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-def test_attention_function_against_autograd_of_plain(gen, rate):
+def test_attention_function_against_autograd_of_plain(gen, rate, dtype):
     """The autograd.Function (kernels both ways) against PyTorch's own
-    autograd through the plain forward, whose keep-mask is a constant."""
+    autograd through the plain forward, whose keep-mask is a constant.
+    In bf16 the plain side runs on the same rounded inputs widened to f32
+    (autograd through its own roundings of p and o would pass them
+    straight, which is not what the kernel's backward computes)."""
     B, T, H, nh = 4, 96, 768, 12
-    leaves = [torch.randn((B, T, H), generator=gen, device="cuda", requires_grad=True) for _ in range(3)]
+    leaves = [torch.randn((B, T, H), generator=gen, device="cuda").to(dtype).requires_grad_(True)
+              for _ in range(3)]
     mask = _mask(B, T)
-    do = torch.randn((B, T, H), generator=gen, device="cuda")
+    do = torch.randn((B, T, H), generator=gen, device="cuda").to(dtype)
     attention.launches = attention.bwd_launches = 0
+    attention.mma_launches = attention.mma_bwd_launches = 0
     attention.fused_attention(*leaves, mask, num_heads=nh, dropout_rate=rate, seed=5).backward(do)
     assert (attention.launches, attention.bwd_launches) == (1, 1)
+    on_tensor_cores = int(dtype == torch.bfloat16)
+    assert (attention.mma_launches, attention.mma_bwd_launches) == (on_tensor_cores,) * 2
     got = [t.grad for t in leaves]
-    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
-    attention.attention_reference(*plain, mask, nh, rate, 5)[0].backward(do)
+    plain = [t.detach().float().requires_grad_(True) for t in leaves]
+    attention.attention_reference(*plain, mask, nh, rate, 5)[0].backward(do.float())
     for name, g, p in zip(("dq", "dk", "dv"), got, plain):
-        torch.testing.assert_close(g, p.grad, msg=name, **GRAD_TOL[torch.float32])
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), p.grad, msg=name, **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [128, 77])
+def test_attention_kernels_repeat_bit_for_bit(gen, T, dtype):
+    """Neither route sums with atomics: two calls on the same inputs give
+    equal bits, forward and backward, with dropout on."""
+    B, H, nh = 6, 768, 12
+    q, k, v, do = (torch.randn((B, T, H), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    mask = _mask(B, T)
+    first = attention.attention_fwd(q, k, v, mask, nh, 0.1, 3)
+    again = attention.attention_fwd(q, k, v, mask, nh, 0.1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    _, m, l = first
+    grads = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, 3)
+    again = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_attention_route_is_a_rule_on_dtype_and_length(gen):
+    """bf16 at T <= 128 goes to the tensor-core kernels, anything else to
+    the FMA kernels; an unaligned view on the tensor-core route raises."""
+    H, nh = 768, 12
+    for dtype, T, mma in ((torch.bfloat16, 128, 1), (torch.bfloat16, 129, 0), (torch.bfloat16, 1, 1),
+                          (torch.float32, 128, 0), (torch.float32, 8, 0)):
+        q = torch.randn((2, T, H), generator=gen, device="cuda").to(dtype)
+        attention.launches = attention.mma_launches = 0
+        attention.bwd_launches = attention.mma_bwd_launches = 0
+        _, m, l = attention.attention_fwd(q, q, q, None, nh)
+        attention.attention_bwd(q, q, q, q, None, m, l, nh)
+        assert (attention.launches, attention.bwd_launches) == (1, 1)
+        assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma), (dtype, T)
+    flat = torch.zeros(2 * 16 * H + 1, dtype=torch.bfloat16, device="cuda")
+    odd = flat[1:].view(2, 16, H)  # contiguous, 2 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        attention.attention_fwd(odd, odd, odd, None, nh)
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
