@@ -10,14 +10,18 @@ non-zero exit and no result line:
 
 0. device — needs CUDA; prints the card's name and power limit.
 1. build — compiles each CUDA source with its own nvcc, all at once, and
-   the Triton LayerNorm kernels; prints the seconds each took.
+   the Triton kernels (LayerNorm backward, scanline lerp); prints the
+   seconds each took.
 2. kernel vs plain — each kernel against its plain PyTorch version on the
    same inputs, in f32 (TF32 off) and bf16, at the shapes of the main
    paths and at ragged ones, with the tolerance of each output: the
    attention forward at rate 0 and with dropout (rate 0.1 and 0.5, and
    the kernel's keep-rate read back), the attention backward (dq, dk, dv,
-   with and without mask, rate 0 and 0.1), the LayerNorm forward and
-   backward (dx, dgamma, dbeta). The attention wrappers' counts must show
+   with and without mask, rate 0 and 0.1), the LayerNorm forward on both
+   its routes (a warp per row at D = 768 and 1000, with a row count off
+   the rows per block; a block per row at D = 4100) with one planted
+   fault (the last row dropped), and the LayerNorm backward (dx, dgamma,
+   dbeta). The attention wrappers' counts must show
    every bf16 case on the tensor-core kernels and every f32 case on the
    FMA kernels. Then the tensor-core pair alone, forward and backward in
    bf16 at (8, 128), (256, 128), (3, 40), (3, 77), (2, 1) x 768, with and
@@ -56,8 +60,9 @@ non-zero exit and no result line:
    projection gradients and the generator's updated BatchNorm statistics
    must agree. Then times: the step with kernels on and off (median of 5
    after 2 warm-ups, img/s), ``torch.profiler`` over one step, and the
-   training kernels against their plain versions: the attention forward
-   and backward at (256, 128, 768) bf16, rate 0.1 and 0, the tensor-core
+   training kernels against their plain versions: the LayerNorm forward
+   and backward at (32768, 768) f32, and the attention forward and
+   backward at (256, 128, 768) bf16, rate 0.1 and 0, the tensor-core
    kernels, the FMA kernels launched directly on the same inputs and the
    plain versions in turns, beside the SDPA calls and the bounds.
 
@@ -68,12 +73,17 @@ non-zero exit and no result line:
    one (a differing index passes only if the two codes' scores differ by
    at most 1e-5 of the row's score range; such rows are counted), and
    with planted exact ties and one row per codebook tile, where the
-   indices must be equal; the lerp at (4096, 3, 128) -> 128 and -> 224,
+   indices must be equal, also to the plain 3xTF32 version's; three calls
+   back to back through one scratch buffer (a smaller after a larger),
+   and a call on a second stream, which gets a buffer of its own; the
+   lerp at (4096, 3, 128) -> 128 and -> 224,
    K = 200, decreasing coordinates, coordinates outside [0, K - 1] and a
    strided 4-D source (<= 1e-6), its backward against autograd through an
    f32 dense tent product (<= 2e-2 relative). One fault is planted per
-   kernel at run time (an argmin blind to the last codebook tile, a lerp
-   with f and 1 - f swapped) and the checks must catch it. Then the main
+   kernel at run time (an argmin blind to the last codebook tile, an
+   argmin that finds its scratch buffer as a call that did not reset it
+   would leave it, a lerp with f and 1 - f swapped) and the checks must
+   catch it. Then the main
    path: a seeded random-init full-width VQGAN ``.ckpt`` (taming's
    names), its yaml and a ViT-B/32 CLIP ``state_dict`` are written to a
    temporary directory and the v2 CLI runs in-process on the card with
@@ -302,21 +312,53 @@ def phase_kernels(attention, layernorm, gen):
             if (B, T, H, nh) == ATTN_SHAPE:
                 errs["attention", tag] = err
         check_route(attention, layernorm, tag)
-        for n in (LN_SHAPE[0], 1000):
-            d = LN_SHAPE[1]
-            x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)
-            scale = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
-            bias = 0.1 * torch.randn((d,), generator=gen, device="cuda")
-            y, mean, rstd = layernorm.layernorm_fwd(x, scale, bias, 1e-12)
-            torch.cuda.synchronize()
-            ry, rmean, rrstd = layernorm.layernorm_reference(x, scale, bias, 1e-12)
-            where = f"layernorm {tag} ({n}, {d})"
-            err = compare(f"{where} y", y, ry, *TOL["ln_y"])
-            compare(f"{where} mean", mean, rmean, *TOL["ln_stats"])
-            compare(f"{where} rstd", rstd, rrstd, *TOL["ln_stats"])
-            if n == LN_SHAPE[0]:
+        # the main path's shape; a row count off the rows per block; a width
+        # whose last pieces are ragged; a width only the block route takes
+        for (n, d), route in ((LN_SHAPE, "warp"), ((1001, LN_SHAPE[1]), "warp"), ((37, 1000), "warp"),
+                              ((37, 4100), "block")):
+            x, scale, bias = layernorm_inputs(n, d, dtype, gen)
+            if layernorm.fwd_route(d, dtype, scale.dtype, bias.dtype) != route:
+                raise AssertionError(f"layernorm {tag} D = {d}: not the {route} route")
+            err = check_layernorm_fwd(layernorm, f"layernorm {tag} ({n}, {d}) {route} route",
+                                      layernorm.layernorm_fwd, x, scale, bias)
+            if (n, d) == LN_SHAPE:
                 errs["layernorm", tag] = err
+        if layernorm.launches != 4:
+            raise AssertionError(f"{tag}: {layernorm.launches} LayerNorm forward launches counted, 4 made")
+
+    def last_row_dropped(x, scale, bias, eps):
+        # a grid one row short: the last row of the last block is never written
+        y, mean, rstd = layernorm.layernorm_fwd(x[:-1], scale, bias, eps)
+        return tuple(torch.cat([t, torch.zeros_like(t[:1])]) for t in (y, mean, rstd))
+
+    x, scale, bias = layernorm_inputs(1001, LN_SHAPE[1], torch.float32, gen)
+    must_catch("a LayerNorm forward that drops the last row of its last block",
+               lambda: check_layernorm_fwd(layernorm, "layernorm f32 (1001, 768), last row dropped",
+                                           last_row_dropped, x, scale, bias))
     return errs
+
+
+def layernorm_inputs(n, d, dtype, gen):
+    import torch
+
+    x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def check_layernorm_fwd(layernorm, where, fwd, x, scale, bias) -> float:
+    """``fwd(x, scale, bias, eps)`` against the plain forward; returns the
+    max abs error of y."""
+    import torch
+
+    y, mean, rstd = fwd(x, scale, bias, 1e-12)
+    torch.cuda.synchronize()
+    ry, rmean, rrstd = layernorm.layernorm_reference(x, scale, bias, 1e-12)
+    err = compare(f"{where} y", y, ry, *TOL["ln_y"])
+    compare(f"{where} mean", mean, rmean, *TOL["ln_stats"])
+    compare(f"{where} rstd", rstd, rrstd, *TOL["ln_stats"])
+    return err
 
 
 def phase_train_kernels(attention, layernorm, gen):
@@ -664,7 +706,15 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
         f"kernel {dev[0]:.4f} ms, plain {dev[1]:.4f} ms (inputs L2-resident) [{card}]")
     lib = library_times((q, k, v, mask, None, nh), (x, scale, bias, None))
     timed["attention"].update(library_ms=lib["sdpa_fwd"])
-    timed["layernorm"].update(library_ms=lib["ln_fwd"], **layernorm_bound(LN_SHAPE, False))
+    # the kernel and the library call in turns, each timed the same way (both
+    # are launch cost at this shape): the medians go into the kernels' line
+    ln_lib = lambda: torch.nn.functional.layer_norm(x, x.shape[-1:], scale, bias, 1e-12)
+    turns = [(cuda_ms(kernel), cuda_ms(ln_lib)) for _ in range(3)]
+    log(f"  layernorm f32 {LN_SHAPE} back to back, kernel / F.layer_norm in turns: "
+        + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns) + f" ms [{card}]")
+    timed["layernorm"].update(ms=statistics.median(a for a, _ in turns),
+                              library_ms=statistics.median(b for _, b in turns),
+                              **layernorm_bound(LN_SHAPE, False))
     for name in ("attention", "layernorm"):
         t = timed[name]
         log(f"  {name}: library call {t['library_ms']:.4f} ms "
@@ -919,6 +969,15 @@ def phase_train(attention, layernorm, gen, card):
     dy = torch.randn((n, d), generator=gen, device="cuda")
     scale = torch.ones(d, device="cuda")
     _, mean, rstd = layernorm.layernorm_fwd(x, scale, scale, 1e-12)
+    fwd = {"kernel": lambda: layernorm.layernorm_fwd(x, scale, scale, 1e-12),
+           "plain": lambda: layernorm.layernorm_reference(x, scale, scale, 1e-12)}
+    fwd_ms = {k: cuda_ms(f, inner=5) for k, f in fwd.items()}
+    fwd_dev = {k: device_ms(f, calls=5) for k, f in fwd.items()}
+    fwd_bound = layernorm_bound(TRAIN_LN, False)
+    log(f"  layernorm_fwd f32 {TRAIN_LN}: kernel {fwd_ms['kernel']:.4f} ms, plain {fwd_ms['plain']:.4f} ms "
+        f"back to back by CUDA events; device time kernel {fwd_dev['kernel']:.4f} ms, plain "
+        f"{fwd_dev['plain']:.4f} ms; bound {fwd_bound['bound_ms']:.5f} ms by {fwd_bound['bound_by']}, "
+        f"device / bound {fwd_dev['kernel'] / fwd_bound['bound_ms']:.2f} [{card}]")
     kernel = lambda: layernorm.layernorm_bwd(dy, x, mean, rstd, scale, scale)
     plain = lambda: layernorm.layernorm_bwd_reference(dy, x, mean, rstd, scale, scale)
     timed["layernorm_bwd"] = {"ms": cuda_ms(kernel, inner=5), "plain_ms": cuda_ms(plain, inner=5)}
@@ -966,7 +1025,7 @@ V2_STEP_TOL = {"f32": 1e-4, "bf16": 2e-2}
 # the image gradient of sum(cutouts ** 2) (each image pixel sums over its
 # 32 cutouts, so no absolute limit fits) and of the step's losses
 WARP_TOL = {"cuts": 2e-2, "grad": 2e-2, "losses": 2e-2}
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12}  # the card's published peaks
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "tf32": 494e12, "bf16": 989e12}  # the card's published peaks
 
 
 def bound(moved: float, operations: float, unit: str) -> dict:
@@ -1110,6 +1169,46 @@ def phase_v2_kernels(vq_argmin, scanline_lerp, gen):
     if got != [5, 64, 5]:
         raise AssertionError(f"planted ties went to {got}, not to the lowest indices [5, 64, 5]")
     log("  duplicated codes: the lowest index of each wins")
+    # the kernel's arithmetic in plain PyTorch: equal where the sums are exact
+    if not torch.equal(argmin(x, cb), vq_argmin.vq_argmin_reference_3xtf32(x, cb)):
+        raise AssertionError("planted ties: the kernel and the plain 3xTF32 version differ")
+    xn, cbn = torch.randn((512, d), generator=gen, device="cuda"), codebooks(K, d, gen)["normal"]
+    differ = int((argmin(xn, cbn) != vq_argmin.vq_argmin_reference_3xtf32(xn, cbn)).sum())
+    log(f"  against the plain 3xTF32 version: equal on the integer case; {differ} of 512 rows differ "
+        "on a normal codebook (reported: the two add in different orders)")
+
+    # one scratch buffer, calls in a row: each must find it as new. Larger,
+    # then smaller, then two of one size with different rows.
+    calls = [torch.randint(-2, 3, (rows, d), generator=gen, device="cuda").float()
+             for rows in (300, N, N)]
+    outs = [argmin(rows, cb) for rows in calls]  # launched back to back, read afterwards
+    torch.cuda.synchronize()
+    for i, (rows, out) in enumerate(zip(calls, outs)):
+        check_argmin(f"vq_argmin call {i + 1} of 3 back to back through one scratch buffer, "
+                     f"N = {rows.shape[0]}", lambda *_: out, rows, cb, True)
+    here = torch.cuda.current_stream()
+    held = dict(vq_argmin._scratch)
+    side = torch.cuda.Stream()
+    side.wait_stream(here)
+    with torch.cuda.stream(side):
+        check_argmin("vq_argmin on a second stream", argmin, calls[1], cb, True)
+    here.wait_stream(side)
+    new = [key for key in vq_argmin._scratch if key not in held]
+    if len(new) != 1 or any(vq_argmin._scratch[new[0]][0].data_ptr() == keys.data_ptr()
+                            for keys, _ in held.values()):
+        raise AssertionError("the second stream did not get a scratch buffer of its own")
+    log(f"  scratch buffers: {len(held)} before, the second stream added its own")
+
+    def scratch_not_reset(x, c):
+        # what a call that skipped its reset would leave: a row's key still
+        # holding an earlier minimum (here the least key there is)
+        keys, _ = vq_argmin.scratch_for(x.device.index, here.cuda_stream, x.shape[0])
+        keys[: x.shape[0]] = 0
+        return argmin(x, c)
+
+    must_catch("an argmin whose scratch buffer was not reset by the call before",
+               lambda: check_argmin("vq_argmin, scratch not reset", scratch_not_reset, calls[1], cb, True))
+    check_argmin("vq_argmin, the call after that one", argmin, calls[2], cb, True)
 
     # one row copied from each 64-code tile, the last included
     cb = codebooks(K, d, gen)["normal"]
@@ -1442,13 +1541,17 @@ def phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card):
             "library_ms": cuda_ms(lambda: (c2 - 2.0 * x @ cb.t()).argmin(dim=-1)),
             **bound(4 * (N * d + K * d + N), 2 * N * K * d + 2 * K * d, "f32"),
         }
+        # the work as the kernel does it: three TF32 products on the tensor cores
+        as_done = bound(4 * (N * d + K * d + N), 6 * N * K * d, "tf32")["bound_ms"]
         cdist_ms = cuda_ms(lambda: torch.cdist(x, cb).argmin(dim=-1))
         dev = (device_ms(lambda: vq_argmin.vq_argmin(x, cb)),
                device_ms(lambda: (c2 - 2.0 * x @ cb.t()).argmin(dim=-1)))
         log(f"  vq_argmin f32 ({N}, {K}, {d}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library (c2 - 2 x @ cb.T).argmin {t['library_ms']:.4f} ms with c2 given, "
             f"cdist().argmin {cdist_ms:.4f} ms, back to back by CUDA events; device time kernel "
-            f"{dev[0]:.4f} ms, library {dev[1]:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']} [{card}]")
+            f"{dev[0]:.4f} ms, library {dev[1]:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+            f"device / bound {dev[0] / t['bound_ms']:.2f}; as done (3 TF32 products on the tensor cores) "
+            f"{as_done:.4f} ms [{card}]")
         if N == VQ_SHAPE[0]:
             timed["vq_argmin"] = t
     S, C, K_, O = LERP_SHAPE
@@ -1532,7 +1635,7 @@ def main() -> int:
         layernorm.layernorm_bwd(w.expand_as(xs).contiguous(), xs, mean, rstd, w, w)
     scanline_lerp.scanline_lerp_fwd(torch.zeros((1, 8, 3, 16), device="cuda"), torch.zeros((8, 16), device="cuda"))
     torch.cuda.synchronize()
-    log(f"  triton {triton.__version__} layernorm fwd + bwd and scanline lerp compile: "
+    log(f"  triton {triton.__version__} layernorm bwd and scanline lerp compile: "
         f"{time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1575,8 +1678,8 @@ def main() -> int:
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:308",
          "launches": train_launches["attention_bwd"],
          "max_abs_err": errs["attention_bwd", "bf16", B, True, 0.1], **train_t["attention_bwd"]},
-        {"name": "layernorm_fwd", "route": "triton",
-         "source": "imagegenerator_tpu_torch/ops/kernels/layernorm.py",
+        {"name": "layernorm_fwd", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/layernorm_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:99",
          "launches": launches["layernorm"], "max_abs_err": errs["layernorm", "f32"],
          **ln_t},

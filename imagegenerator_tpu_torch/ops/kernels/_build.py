@@ -11,7 +11,8 @@ rebuilds and an unchanged tree reuses what an earlier run built. Nothing
 here includes PyTorch's headers, which keeps a build to seconds.
 
 A wrapper passes tensors as ``data_ptr()`` integers and the stream as
-``torch.cuda.current_stream().cuda_stream``; every C entry point returns
+the integer handle of PyTorch's current stream (``raw_stream()`` gives the
+cheapest way to read it); every C entry point returns
 ``cudaGetLastError()`` after its launches and the wrapper raises on
 anything but 0.
 """
@@ -124,6 +125,20 @@ def build_log(name: str) -> str:
     """The compiler output of a library's current build, if any."""
     log = build_dir() / f"{name}.build.log"
     return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def raw_stream():
+    """The function ``index -> handle`` that gives the current stream of
+    a device index as the integer a C entry point takes: PyTorch's raw
+    getter where it has one (no ``Stream`` object is made), else
+    ``torch.cuda.current_stream(index).cuda_stream``."""
+    import torch
+
+    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if getter is None:
+        return lambda index: torch.cuda.current_stream(index).cuda_stream
+    return getter
 
 
 def check(rc: int, what: str) -> None:

@@ -3,26 +3,34 @@
 Replaces ``imagegenerator_tpu/ops/pallas/layernorm.py``: ``_call_fwd``
 (kernel ``_fwd_kernel``) and ``_bwd`` (kernel ``_bwd_kernel``), which BERT
 reaches through ``fused_layernorm`` when ``BertConfig.fused_ln`` is set.
-On a CUDA tensor the wrappers launch Triton kernels
-(``_layernorm_fwd_kernel``; ``_layernorm_bwd_kernel`` then
-``_layernorm_bwd_reduce_kernel``); on a CPU tensor they run
-``layernorm_reference`` and ``layernorm_bwd_reference``, the plain
-PyTorch versions of the same functions. ``fused_layernorm`` is a
-``torch.autograd.Function`` whose forward saves what the TPU custom VJP
-saves (x, mean, rstd, scale, bias).
+On a CUDA tensor ``layernorm_fwd`` launches the hand-written kernel in
+``csrc/layernorm_fwd.cu`` (CUDA C++ for ``sm_90a``, built by ``_build``
+and called through ``ctypes``) and ``layernorm_bwd`` two Triton kernels
+(``_layernorm_bwd_kernel`` then ``_layernorm_bwd_reduce_kernel``); on a
+CPU tensor they run ``layernorm_reference`` and
+``layernorm_bwd_reference``, the plain PyTorch versions of the same
+functions. ``fused_layernorm`` is a ``torch.autograd.Function`` whose
+forward saves what the TPU custom VJP saves (x, mean, rstd, scale, bias).
 
 What bounds them on the card: bytes. There is no product for the tensor
-cores: a row reduction or two and elementwise terms. The forward gives
-each row one program holding the whole row (``BLOCK_D = next_pow2(D)``,
-masked), so x is read from device memory once and both reductions run on
-registers. The backward reads (dy, x, mean, rstd) once and writes dx: a
-program walks ``ROWS`` rows, computing dx row by row and summing its
-rows' ``dy * xhat`` and ``dy`` in registers into one partial (dgamma,
-dbeta) row in an ``(n_blocks, D)`` f32 buffer; a second small kernel sums
-the partials over the blocks. On the TPU the sequential grid carried the
-sum in VMEM; blocks on Hopper run in no order, hence the second pass.
-The plain versions make a separate pass over device memory for each
-elementwise step and reduction.
+cores: a row reduction or two and elementwise terms. The forward reads x
+once and writes y once. ``fwd_route`` names its kernel: ``"warp"`` (one
+warp per row, the row in registers, both reductions by shuffles) for
+D <= 1024 in whole 16-byte pieces with f32 scale and bias, ``"block"``
+(one block per row) for every other width and type. At BERT's shapes the
+forward is a few microseconds on the card, so its cost to a caller is
+the launch, and ``layernorm_fwd`` keeps the host's share small: one C
+entry point bound once, the stream read as a raw handle, ``mean`` and
+``rstd`` cut from one allocation, and no device context unless the
+tensor lies on another card than the current one. The backward reads
+(dy, x, mean, rstd) once and writes dx: a program walks ``ROWS`` rows,
+computing dx row by row and summing its rows' ``dy * xhat`` and ``dy``
+in registers into one partial (dgamma, dbeta) row in an ``(n_blocks,
+D)`` f32 buffer; a second small kernel sums the partials over the
+blocks. On the TPU the sequential grid carried the sum in VMEM; blocks
+on Hopper run in no order, hence the second pass. The plain versions
+make a separate pass over device memory for each elementwise step and
+reduction.
 
 Numerics follow the TPU kernels: statistics in f32 whatever x's dtype,
 the two-pass variance ``mean((x - mean)^2)``, output in
@@ -34,9 +42,12 @@ bias. The TPU's ``D % 128`` rule does not apply here.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
+
+from imagegenerator_tpu_torch.ops.kernels import _build
 
 # Kernel launches so far; the wrappers add one per launch and nothing else
 # does (``bwd_launches``: one per backward, its two Triton kernels
@@ -44,7 +55,11 @@ import torch
 launches = 0
 bwd_launches = 0
 
-_IN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the C entry point's dtype codes
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_OUT_DTYPE = {(a, b): torch.promote_types(a, b) for a in _IN_DTYPES for b in _IN_DTYPES}
+WARP_MAX_D = 1024  # the warp route holds a row in 32 lanes x 32 registers
+WARP_ROWS = 4  # rows, one warp each, per block of the warp route
 BWD_ROWS = 64  # rows per backward program: one partial (dgamma, dbeta) row each
 
 
@@ -74,23 +89,6 @@ def layernorm_bwd_reference(dy2, x2, mean, rstd, scale, bias):
         (dy * xhat).sum(dim=0).to(scale.dtype),
         dy.sum(dim=0).to(bias.dtype),
     )
-
-
-def _layernorm_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, mean_ptr, rstd_ptr,
-                          d, eps, BLOCK_D: tl.constexpr):
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK_D)
-    keep = cols < d
-    x = tl.load(x_ptr + row * d + cols, mask=keep, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / d
-    xc = tl.where(keep, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / d
-    rstd = 1.0 / tl.sqrt(var + eps)
-    w = tl.load(w_ptr + cols, mask=keep, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + cols, mask=keep, other=0.0).to(tl.float32)
-    tl.store(y_ptr + row * d + cols, xc * rstd * w + b, mask=keep)
-    tl.store(mean_ptr + row, mean)
-    tl.store(rstd_ptr + row, rstd)
 
 
 def _layernorm_bwd_kernel(dy_ptr, x_ptr, mean_ptr, rstd_ptr, w_ptr, dx_ptr,
@@ -139,30 +137,61 @@ def _layernorm_bwd_reduce_kernel(pw_ptr, pb_ptr, dw_ptr, db_ptr, n_blocks, d,
 
 @functools.cache
 def _kernels():
-    """The jitted kernels ``(fwd, bwd, bwd_reduce)``. Triton is imported,
-    and the kernels decorated, here at first launch, so this module
-    imports where Triton is absent; the kernels' ``tl`` is this module's
-    global, bound by the import."""
+    """The jitted backward kernels ``(bwd, bwd_reduce)``. Triton is
+    imported, and the kernels decorated, here at first launch, so this
+    module imports where Triton is absent; the kernels' ``tl`` is this
+    module's global, bound by the import."""
     global tl
     import triton
     import triton.language as tl
 
-    return tuple(triton.jit(f) for f in (
-        _layernorm_fwd_kernel, _layernorm_bwd_kernel, _layernorm_bwd_reduce_kernel,
-    ))
+    return triton.jit(_layernorm_bwd_kernel), triton.jit(_layernorm_bwd_reduce_kernel)
+
+
+@functools.cache
+def _fwd_entry():
+    """``(fn, raw_stream)``: the C entry point of ``csrc/layernorm_fwd.cu``,
+    built at first use and bound once, and ``_build.raw_stream()``."""
+    fn = _build.library("layernorm_fwd").layernorm_fwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn, _build.raw_stream()
+
+
+@functools.cache
+def fwd_route(d: int, x_dtype, scale_dtype, bias_dtype, aligned: bool = True) -> str:
+    """Which forward kernel a CUDA call takes: ``"warp"`` for a row that
+    32 lanes hold in registers as whole 16-byte pieces (``d <= 1024``, a
+    multiple of 4 for f32 x and of 8 for bf16 or f16 x) with f32 scale and
+    bias (so y is f32) and 16-byte ``aligned`` x, scale and bias; else
+    ``"block"``."""
+    piece = 4 if x_dtype == torch.float32 else 8
+    if (
+        aligned and d <= WARP_MAX_D and d % piece == 0
+        and scale_dtype == torch.float32 and bias_dtype == torch.float32
+    ):
+        return "warp"
+    return "block"
 
 
 def _check_cuda(x2, scale, bias):
+    """Raise on what the kernels do not take. Every launch pays for this,
+    so it reads attributes and compares integers: no ``torch.Size`` or
+    ``torch.device`` is made unless a check fails."""
     n, d = x2.shape
     if x2.dtype not in _IN_DTYPES or not x2.is_contiguous():
         raise ValueError(
-            f"layernorm: x must be contiguous {_IN_DTYPES}, got {x2.dtype}"
+            f"layernorm: x must be contiguous {tuple(_IN_DTYPES)}, got {x2.dtype}"
         )
-    for name, t in (("scale", scale), ("bias", bias)):
-        if (
-            t.shape != (d,) or t.device != x2.device or not t.is_contiguous()
-            or t.dtype not in _IN_DTYPES
+    index = x2.get_device()
+    for t in (scale, bias):
+        if not (
+            t.dim() == 1 and t.numel() == d and t.is_cuda and t.get_device() == index
+            and t.is_contiguous() and t.dtype in _IN_DTYPES
         ):
+            name = "scale" if t is scale else "bias"
             raise ValueError(
                 f"layernorm: {name} must be a contiguous float ({d},) "
                 f"tensor on {x2.device}"
@@ -182,25 +211,71 @@ def _block(d):
     return block, 4 if block <= 2048 else 8
 
 
+@functools.cache
+def fwd_codes(x_dtype, scale_dtype, bias_dtype, route: str) -> int:
+    """The C entry point's ``codes`` argument: two bits each, from the
+    lowest, for the dtype codes of x, scale, bias and y and for the route
+    (1 for ``"warp"``)."""
+    y_dtype = _OUT_DTYPE[x_dtype, scale_dtype]
+    fields = (_IN_DTYPES[x_dtype], _IN_DTYPES[scale_dtype], _IN_DTYPES[bias_dtype],
+              _IN_DTYPES[y_dtype], 1 if route == "warp" else 0)
+    return sum(field << (2 * i) for i, field in enumerate(fields))
+
+
+@functools.cache
+def _fwd_plan(d: int, x_dtype, scale_dtype, bias_dtype, aligned: bool) -> int:
+    """``fwd_codes`` of ``fwd_route``, one cached lookup a launch."""
+    route = fwd_route(d, x_dtype, scale_dtype, bias_dtype, aligned)
+    return fwd_codes(x_dtype, scale_dtype, bias_dtype, route)
+
+
+def _new_empty(shape, dtype, x2, scale):
+    """An uninitialised ``shape`` tensor of ``dtype`` on x2's device.
+    ``new_empty`` of a tensor that already has the dtype costs the host
+    about half of ``torch.empty`` with its ``dtype`` and ``device``
+    keywords, and x2 or scale (on x2's device, checked) nearly always
+    has it."""
+    if x2.dtype == dtype:
+        return x2.new_empty(shape)
+    if scale.dtype == dtype:
+        return scale.new_empty(shape)
+    return torch.empty(shape, dtype=dtype, device=x2.device)
+
+
+def _fwd_outputs(x2, scale):
+    """``(y, mean, rstd)`` to be written: y like x2 in ``promote(x,
+    scale)``; mean and rstd the two contiguous ``(n, 1)`` f32 halves of
+    one ``(2, n, 1)`` allocation, the means first."""
+    dtype = _OUT_DTYPE[x2.dtype, scale.dtype]
+    y = torch.empty_like(x2) if dtype == x2.dtype else _new_empty(x2.shape, dtype, x2, scale)
+    mean, rstd = _new_empty((2, x2.shape[0], 1), torch.float32, x2, scale).unbind(0)
+    return y, mean, rstd
+
+
 def layernorm_fwd(x2, scale, bias, eps: float):
     """``(y, mean, rstd)`` of the forward on ``x2 (N, D)``, the outputs of
     ``_call_fwd``: the kernel on a CUDA tensor, the plain version on a
     CPU tensor."""
-    if _device(x2) == "cpu":
+    if not x2.is_cuda and _device(x2) == "cpu":
         return layernorm_reference(x2, scale, bias, eps)
     _check_cuda(x2, scale, bias)
     global launches
     n, d = x2.shape
-    y = torch.empty(
-        (n, d), dtype=torch.promote_types(x2.dtype, scale.dtype), device=x2.device
-    )
-    mean = torch.empty((n, 1), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty_like(mean)
-    block, warps = _block(d)
-    with torch.cuda.device(x2.device):
-        _kernels()[0][(n,)](
-            x2, scale, bias, y, mean, rstd, d, eps, BLOCK_D=block, num_warps=warps,
-        )
+    y, mean, rstd = _fwd_outputs(x2, scale)
+    if n == 0:
+        return y, mean, rstd
+    fn, raw_stream = _fwd_entry()
+    px, pw, pb = x2.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    codes = _fwd_plan(d, x2.dtype, scale.dtype, bias.dtype, (px | pw | pb) % 16 == 0)
+    index = x2.get_device()
+    args = (px, pw, pb, y.data_ptr(), mean.data_ptr(), n, d, eps, codes)  # rstd follows mean
+    if index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(index))
+    else:  # a launch goes to the current device: make it the tensor's
+        with torch.cuda.device(index):
+            rc = fn(*args, raw_stream(index))
+    if rc:
+        _build.check(rc, "layernorm_fwd")
     launches += 1
     return y, mean, rstd
 
@@ -228,7 +303,7 @@ def layernorm_bwd(dy2, x2, mean, rstd, scale, bias):
     dgamma = torch.empty((d,), dtype=torch.float32, device=x2.device)
     dbeta = torch.empty_like(dgamma)
     block, warps = _block(d)
-    _, bwd, reduce = _kernels()
+    bwd, reduce = _kernels()
     with torch.cuda.device(x2.device):
         bwd[(n_blocks,)](
             dy2, x2, mean, rstd, scale, dx, partial_w, partial_b, n, d,

@@ -4,12 +4,13 @@ takes, up to 512, with and without dropout (keep-rate read back); the
 attention backward (CUDA C++) with and without mask and dropout, both on
 the route ``attention.kernel_route`` names (tensor cores for bf16 at
 T <= 128, FMA units otherwise; the counters say which ran); the
-LayerNorm forward and backward (Triton) over widths, row counts and
-dtypes; the ``autograd.Function``s against PyTorch's autograd through the
+LayerNorm forward (CUDA C++, both its routes) and backward (Triton) over
+widths, row counts and dtypes; the ``autograd.Function``s against PyTorch's autograd through the
 plain forwards; the wrappers' launch counts and refusals; the BERT
 encoder with the kernels on against off, forward and backward; the
-codebook argmin (CUDA C++) over row counts, codebook sizes and widths off
-every tile size, with planted ties; the scanline lerp (Triton) over
+codebook argmin (CUDA C++, tensor cores) over row counts, codebook sizes
+and widths off every tile size, with planted ties, calls in a row through
+one scratch buffer and a call on a second stream; the scanline lerp (Triton) over
 shapes, strided sources and coordinate kinds, and its
 ``autograd.Function``; and one v2 engine step with the two on against
 off. Marked
@@ -240,7 +241,12 @@ def test_attention_route_is_a_rule_on_dtype_and_length(gen):
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                                              (torch.float16, torch.float32), (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("n,d", [(1, 64), (7, 100), (1000, 768), (33, 1000), (16, 4096)])
+# widths of both routes (a warp per row up to 1024 in whole 16-byte pieces,
+# else a block per row, up to the widest the wrapper takes) and row counts
+# of one row and one row over a block of the warp route
+@pytest.mark.parametrize("n,d", [(1, 64), (7, 100), (1000, 768), (33, 1000), (16, 4096),
+                                 (1, 768), (layernorm.WARP_ROWS + 1, 768), (9, 1024), (3, 1028),
+                                 (9, 770), (2, 65536), (1, 1)])
 def test_layernorm_kernel_matches_plain(gen, n, d, x_dtype, w_dtype):
     x = (torch.randn((n, d), generator=gen, device="cuda") * 3 + 0.5).to(x_dtype)
     scale = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(w_dtype)
@@ -290,6 +296,27 @@ def test_layernorm_function_against_autograd_of_plain(gen):
     layernorm.layernorm_reference(*plain, 1e-12)[0].backward(dy)
     for name, g, p in zip(("dx", "dgamma", "dbeta"), got, plain):
         torch.testing.assert_close(g, p.grad, msg=name, rtol=1e-4, atol=1e-3)
+
+
+def test_layernorm_forward_takes_an_unaligned_view_and_feeds_the_backward(gen):
+    """x at an offset of one element is off a 16-byte boundary: the block
+    route takes it. The forward's mean and rstd, halves of one allocation,
+    are what the backward accepts."""
+    flat = torch.randn(1 + 6 * 768, generator=gen, device="cuda")
+    x = flat[1:].view(6, 768)
+    w = 1 + 0.1 * torch.randn((768,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((768,), generator=gen, device="cuda")
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got = layernorm.layernorm_fwd(x, w, b, 1e-12)
+    want = layernorm.layernorm_reference(x, w, b, 1e-12)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+    dy = torch.randn((6, 768), generator=gen, device="cuda")
+    dx = layernorm.layernorm_bwd(dy, x, got[1], got[2], w, b)[0]
+    torch.testing.assert_close(dx, layernorm.layernorm_bwd_reference(dy, x, *want[1:], w, b)[0],
+                               rtol=1e-4, atol=1e-4)
+    empty = layernorm.layernorm_fwd(x[:0], w, b, 1e-12)
+    assert [tuple(t.shape) for t in empty] == [(0, 768), (0, 1), (0, 1)]
 
 
 def test_layernorm_wrapper_refuses(gen):
@@ -423,6 +450,45 @@ def test_vq_argmin_ties_go_to_the_lowest_index(gen, n, k, d):
     rows = torch.arange(0, k, 64, device="cuda")
     normal = torch.randn((k, d), generator=gen, device="cuda")
     assert torch.equal(vq_argmin.vq_argmin(normal[rows].contiguous(), normal).long(), rows)
+
+
+def _integer_case(gen, n, k, d):
+    cb = torch.randint(-2, 3, (k, d), generator=gen, device="cuda").float()
+    return torch.randint(-2, 3, (n, d), generator=gen, device="cuda").float(), cb
+
+
+def test_vq_argmin_calls_in_a_row_share_one_scratch(gen):
+    """Launched back to back on one stream, a larger call before a smaller
+    one: each finds the scratch buffer as new, and the last leaves it so."""
+    cb = _integer_case(gen, 1, 5000, 128)[1]
+    calls = [_integer_case(gen, n, 1, 128)[0] for n in (300, 64, 64, 1000, 1)]
+    outs = [vq_argmin.vq_argmin(x, cb) for x in calls]
+    torch.cuda.synchronize()
+    for x, out in zip(calls, outs):
+        assert torch.equal(out, vq_argmin.vq_argmin_reference(x, cb))
+    keys, tickets = vq_argmin._scratch[0, torch.cuda.current_stream().cuda_stream]
+    assert keys.shape[0] >= 1000 and bool((keys == -1).all()) and int(tickets.count_nonzero()) == 0
+
+
+def test_vq_argmin_second_stream_gets_its_own_scratch(gen):
+    x, cb = _integer_case(gen, 130, 2100, 128)
+    want = vq_argmin.vq_argmin_reference(x, cb)
+    assert torch.equal(vq_argmin.vq_argmin(x, cb), want)
+    here, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(here)
+    with torch.cuda.stream(side):
+        got = vq_argmin.vq_argmin(x, cb)
+    side.synchronize()
+    assert torch.equal(got, want)
+    mine, its = vq_argmin._scratch[0, here.cuda_stream], vq_argmin._scratch[0, side.cuda_stream]
+    assert here.cuda_stream != side.cuda_stream and mine[0].data_ptr() != its[0].data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vq_argmin_equals_the_plain_3xtf32_version_on_exact_inputs(gen, dtype):
+    x, cb = _integer_case(gen, 200, 3000, 256)
+    got = vq_argmin.vq_argmin(x.to(dtype), cb)
+    assert torch.equal(got, vq_argmin.vq_argmin_reference_3xtf32(x.to(dtype), cb))
 
 
 def test_vq_argmin_wrapper_refuses_and_quantize_switches(gen):

@@ -3,9 +3,10 @@ plain forward against the JAX package's Pallas forward ``_call_fwd`` in
 interpret mode (y, mean, rstd) and against ``torch.nn.LayerNorm``; the
 vjp of ``fused_layernorm`` (dx, dgamma, dbeta, through the plain
 backward) against JAX ``fused_layernorm(..., interpret=True)``'s; and
-the wrappers' contract. The Triton kernels themselves are held to the
-plain versions on the card by ``chip_smoke.py`` and
-``tests/test_torch_kernels_cuda.py``.
+the wrappers' contract, the forward's route rule and the layout of its
+outputs. The kernels themselves (the forward in CUDA C++, the backward in
+Triton) are held to the plain versions on the card by ``chip_smoke.py``
+and ``tests/test_torch_kernels_cuda.py``.
 
 Tolerance: rtol = atol = 1e-5 (plain version of a kernel)."""
 
@@ -131,3 +132,56 @@ def test_no_kernel_for_other_devices():
         layernorm.layernorm_fwd(x, x[0], x[0], EPS)
     with pytest.raises(ValueError, match="no kernel"):
         layernorm.layernorm_bwd(x, x, x[:, :1], x[:, :1], x[0], x[0])
+
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("d,x_dtype,w_dtype,b_dtype,aligned,route", [
+    (768, F32, F32, F32, True, "warp"),     # BERT-base, f32 and bf16 compute
+    (768, BF16, F32, F32, True, "warp"),
+    (768, F16, F32, F32, True, "warp"),
+    (1024, F32, F32, F32, True, "warp"),    # the widest row 32 lanes hold
+    (1028, F32, F32, F32, True, "block"),
+    (4, F32, F32, F32, True, "warp"),
+    (1000, F32, F32, F32, True, "warp"),    # whole 16-byte pieces of f32 ...
+    (1000, BF16, F32, F32, True, "warp"),   # ... and of bf16 (125 pieces of 8)
+    (1004, BF16, F32, F32, True, "block"),  # 4 over a multiple of 8
+    (100, BF16, F32, F32, True, "block"),
+    (100, F32, F32, F32, True, "warp"),
+    (770, F32, F32, F32, True, "block"),
+    (4096, F32, F32, F32, True, "block"),
+    (768, BF16, BF16, BF16, True, "block"),  # y would be bf16
+    (768, F32, F32, BF16, True, "block"),
+    (768, F32, F16, F32, True, "block"),
+    (768, F32, F32, F32, False, "block"),   # a pointer off a 16-byte boundary
+])
+def test_forward_route_rule(d, x_dtype, w_dtype, b_dtype, aligned, route):
+    assert layernorm.fwd_route(d, x_dtype, w_dtype, b_dtype, aligned) == route
+    if aligned:
+        assert layernorm.fwd_route(d, x_dtype, w_dtype, b_dtype) == route
+
+
+def test_forward_codes_pack_dtypes_and_route():
+    assert layernorm.fwd_codes(F32, F32, F32, "warp") == 1 << 8
+    assert layernorm.fwd_codes(F32, F32, F32, "block") == 0
+    # x bf16 (1), scale bf16 (1), bias f16 (2), y = promote(bf16, bf16) = bf16 (1)
+    assert layernorm.fwd_codes(BF16, BF16, F16, "block") == 1 | 1 << 2 | 2 << 4 | 1 << 6
+    # y = promote(f16, bf16) = f32 (0)
+    assert layernorm.fwd_codes(F16, BF16, F32, "block") == 2 | 1 << 2
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [(F32, F32), (BF16, F32), (BF16, BF16), (F16, BF16)])
+@pytest.mark.parametrize("n", [1, 5, 1024])
+def test_forward_outputs_are_what_the_backward_takes(n, x_dtype, w_dtype):
+    """mean and rstd are the halves of one (2, N, 1) allocation: each a
+    contiguous (N, 1) f32 tensor, as ``layernorm_bwd`` requires, the rstds
+    N floats after the means, as the C entry point assumes."""
+    x = torch.zeros((n, 48), dtype=x_dtype)
+    y, mean, rstd = layernorm._fwd_outputs(x, torch.ones(48, dtype=w_dtype))
+    assert y.shape == x.shape and y.is_contiguous() and y.dtype == torch.promote_types(x_dtype, w_dtype)
+    for t in (mean, rstd):
+        assert t.shape == (n, 1) and t.dtype == torch.float32 and t.is_contiguous()
+    assert rstd.data_ptr() - mean.data_ptr() == 4 * n
+    assert mean.untyped_storage().data_ptr() == rstd.untyped_storage().data_ptr()
+    assert y.untyped_storage().data_ptr() != mean.untyped_storage().data_ptr()
