@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's v1 sampling path, its stage-1 training step
-and its v2 VQGAN+CLIP generation on one CUDA card.
+"""Drive the PyTorch port's v1 sampling path, its stage-1 and stage-2
+training steps, the chain of its training and sampling CLIs and its v2
+VQGAN+CLIP generation on one CUDA card.
 
     python3 chip_smoke.py            # everything, as below
-    python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6)
+    python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6,
+                                     # --only train2: phase 8)
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -93,8 +95,38 @@ non-zero exit and no result line:
    resume are checked. Then the engine at batch 4 in f32 and bf16: one
    step from the same state and draws with the kernels on and off
    (losses and the gradient of z). Then times: 20-step windows at batch
-   1 and 4 with the kernels on and off, each kernel against its plain
-   version and the library call, and ``torch.profiler`` over 5 steps.
+   1 and 4 with the kernels on and off, in f32 (5 windows) and in bf16 (3
+   windows), each kernel against its plain version and the library call,
+   and ``torch.profiler`` over 5 steps.
+8. stage-2 training at full width — ``Stage2Config()`` (BERT-base, G1 to
+   64 px, G2 with 4 residual blocks to 256 px, D2 (16, 32, 64, 128, 256,
+   512)), bf16, n_critic 5, from a seeded random init. The ``tem`` route
+   (precomputed caption embeddings) at batch 256 with uint8 images: 2
+   warm-ups, the median of 5 steps, images/s, peak memory and a
+   ``torch.profiler`` table (device busy share, device time by class of
+   kernel, the top kernels, the kernel count); a batch that does not fit
+   is halved, and the log says so. The tokens route at the same batch with
+   the kernels on: per step 12 tensor-core attention forwards, 0
+   backwards, 25 LayerNorm forwards, 0 backwards. Correctness at batch 32,
+   each check with one planted fault that it must catch: (a) one tokens
+   step with the kernels on against off from the same state, batch and
+   noise, in f32 (TF32 off) and bf16: the 4 metrics and G2's and D2's
+   BatchNorm statistics; (b) the ``tem`` route fed ``embed_texts(tokens)``
+   against the tokens route, same limits; (c) one step at
+   ``Stage2Config.tiny()`` on the card against the same step on the CPU,
+   f32, noise replayed: metrics, BatchNorm statistics, the optimizers'
+   first moments and the updated parameters at 1e-4; (d) the frozen stack
+   bit-equal after all the steps above. Then the chain through the entry
+   points, full width, bf16, ``--fused_attn --fused_ln --ema 0.999``,
+   batch 32, on 64 captioned 640 x 480 PNGs the script writes (read back
+   by the standard-library PNG reader where Pillow is not installed):
+   ``train.cli --stage 1`` for one epoch (2 steps), ``train.cli --stage 2
+   --stage1_checkpoint ...`` for one epoch, each run a second time, which
+   must resume (``Loaded checkpoint at epoch 0``) and take no step; then
+   ``train.sample --stage 2 --ema`` on that checkpoint: 256 x 256 PNGs
+   with their ``comment`` chunks. The checkpoint layout and the kernels'
+   launch counts are checked (stage 1: attention forward and backward,
+   LayerNorm both ways; stage 2 and sampling: forwards only).
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
@@ -154,9 +186,15 @@ KEEP_TOL = 0.005  # |keep rate read back - (1 - rate)|
 # planted faults (backward without the mask, ds scaled 8x, LayerNorm
 # dgamma dropped, dx without its xhat term) read 5.1e-2 to 1.8e13 in
 # either; metrics 2.7e-6 / 2.9e-4, BN statistics 3e-8 / 8e-6.
+# The stage-2 step (phase 8) holds G2's statistics as "bn" and has two
+# limits of its own in bf16, "gp" and "bn_critic": between the two sides'
+# BERT outputs (which differ by 2e-2 in bf16) and those readings lie five
+# Adam updates of the critic, and gp = (|grad| - 1)^2 moves about three
+# times as far as the gradient's norm. Sound kernels read gp 1.1e-2 and
+# D2's statistics 3.4e-3 in bf16 (9.2e-5 and 5.6e-6 in f32).
 STEP_TOL = {
-    "f32": {"metric": 1e-3, "bn": 1e-4, "grads": 1e-4},
-    "bf16": {"metric": 2e-2, "bn": 1e-3, "grads": 2e-2},
+    "f32": {"metric": 1e-3, "bn": 1e-4, "grads": 1e-4, "gp": 1e-3, "bn_critic": 1e-4},
+    "bf16": {"metric": 2e-2, "bn": 1e-3, "grads": 2e-2, "gp": 5e-2, "bn_critic": 2e-2},
 }
 IMAGE_TOL = {"f32": 1e-3, "bf16": 0.1}
 # max abs, BERT's last hidden state (values within about +-4). On an H100
@@ -859,8 +897,7 @@ def phase_train(attention, layernorm, gen, card):
     n_params = sum(p.numel() for p in system.parameters())
     log(f"  full-width random init, {n_params / 1e6:.1f}M parameters, "
         f"{time.perf_counter() - t0:.1f} s")
-    per_step = {"attention": 12, "attention_mma": 12, "attention_dropout": 12, "attention_bwd": 12,
-                "attention_bwd_mma": 12, "layernorm": 25, "layernorm_bwd": 25}
+    per_step = WITH_BACKWARD
     totals = dict.fromkeys(per_step, 0)
     for i in range(TRAIN_STEPS):
         reset_counts(attention, layernorm)
@@ -1298,29 +1335,37 @@ def png_comment(path: Path) -> str:
     return data[at + 12:at + 4 + length].decode("latin-1")
 
 
+def run_cli(main, argv) -> str:
+    """``main(argv)`` in-process; returns what it printed (and logs it)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            main(argv)
+    finally:
+        for line in printed.getvalue().splitlines():
+            log(f"    | {line}")
+    return printed.getvalue()
+
+
 def run_v2_cli(args) -> str:
     """The v2 CLI in-process with the warp kernel on; returns what it
     printed (and prints it)."""
-    import contextlib
-    import io
     import os
 
     from imagegenerator_tpu_torch.v2 import generate
 
     before = os.environ.get("IMAGEGEN_WARP_KERNEL")
     os.environ["IMAGEGEN_WARP_KERNEL"] = "1"
-    printed = io.StringIO()
     try:
-        with contextlib.redirect_stdout(printed):
-            generate.main(args)
+        return run_cli(generate.main, args)
     finally:
         if before is None:
             del os.environ["IMAGEGEN_WARP_KERNEL"]
         else:
             os.environ["IMAGEGEN_WARP_KERNEL"] = before
-        for line in printed.getvalue().splitlines():
-            log(f"    | {line}")
-    return printed.getvalue()
 
 
 def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
@@ -1492,8 +1537,10 @@ def phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     step_ms = {}
-    for batch in (1, 4):
-        engines = {tag: v2_engine(vq_state, clip_state, None, tag == "on") for tag in ("on", "off")}
+    # f32 is what the CLI runs; bf16 compute with fewer windows
+    for dtype, dt, windows, batch in ((None, "f32", 5, 1), (None, "f32", 5, 4),
+                                      (torch.bfloat16, "bf16", 3, 1), (torch.bfloat16, "bf16", 3, 4)):
+        engines = {tag: v2_engine(vq_state, clip_state, dtype, tag == "on") for tag in ("on", "off")}
         prompts = v2_prompts(engines["on"], batch)
         z0 = engines["on"].random_token_latent(gen, batch, 8, 8)
         states = {tag: e.init_state(z0) for tag, e in engines.items()}
@@ -1508,19 +1555,19 @@ def phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card):
         for tag in engines:
             window(tag, 3)
         samples = {"on": [], "off": []}
-        for i in range(5):
+        for i in range(windows):
             for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
                 samples[tag].append(window(tag))
         for tag in ("on", "off"):
             ms = statistics.median(samples[tag])
-            step_ms[batch, tag] = ms
-            log(f"  v2 step batch {batch} f32 kernels {tag}: {ms:.3f} ms per step, "
+            step_ms[dt, batch, tag] = ms
+            log(f"  v2 step batch {batch} {dt} kernels {tag}: {ms:.3f} ms per step, "
                 f"{1e3 / ms:.2f} steps/s, {batch * 1e3 / ms:.2f} prompt-steps/s (windows of "
                 f"{V2_WINDOW}: {', '.join(f'{t:.2f}' for t in samples[tag])}) [{card}]")
-        for tag in ("on", "off"):
+        for tag in ("on", "off") if dtype is None else ("on",):
             host_ms, events = profiled(lambda: engines[tag].chain(states[tag], 5, SEED, *prompts), calls=1)
             busy = sum(e.self_device_time_total for e in events) / 1e3
-            log(f"  profiled 5 steps batch {batch}, kernels {tag}: host {host_ms / 5:.3f} ms per step, "
+            log(f"  profiled 5 steps batch {batch} {dt}, kernels {tag}: host {host_ms / 5:.3f} ms per step, "
                 f"device busy {busy / 5:.3f} ms per step ({100 * busy / host_ms:.1f}%), "
                 f"{sum(e.count for e in events) // 5} kernels per step")
             for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
@@ -1580,13 +1627,517 @@ def phase_v2(vq_argmin, scanline_lerp, gen, card):
     return launches, errs, timed
 
 
+# ------------------------------------------------------- stage-2 training
+
+TRAIN2_BATCH = 256  # the tem route's timed batch (halved, with a log line, if it does not fit)
+TRAIN2_CHECK_BATCH = 32
+CHAIN_BATCH, CHAIN_IMAGES, CHAIN_IMAGE_SIZE = 32, 64, (480, 640)
+# kernel launches of one BERT-base forward at rate 0, and of a training
+# forward with dropout and its backward (a stage-1 step)
+NO_BACKWARD = {"attention": 12, "attention_mma": 12, "attention_dropout": 0, "attention_bwd": 0,
+               "attention_bwd_mma": 0, "layernorm": 25, "layernorm_bwd": 0}
+WITH_BACKWARD = {"attention": 12, "attention_mma": 12, "attention_dropout": 12, "attention_bwd": 12,
+                 "attention_bwd_mma": 12, "layernorm": 25, "layernorm_bwd": 25}
+FROZEN = ("encoder.", "projection.", "con_augment_1.", "gen_1.")
+# phase 8 (c), the tiny step on the card against the CPU's, f32: metrics and
+# BatchNorm statistics rtol = atol; an optimizer's first moment within MOMENT
+# of its tensor's largest plus as much relative; a parameter within PARAM
+# where its gradient is not rounding noise (its moment at least NOISE of the
+# tensor's largest: Adam's first updates move an element by lr * sign(g),
+# so where g is noise around 0 the two sides may step in opposite directions)
+TINY_TOL = {"metric": 1e-4, "bn": 1e-4, "moment": 1e-4, "param": 1e-4, "noise": 1e-3}
+
+
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("attention_", "layernorm", "vq_argmin", "lerp")):
+        return "hand-written kernels"
+    if any(k in n for k in ("xmma", "cudnn", "cutlass", "gemm", "conv", "wgrad", "dgrad", "fprop",
+                            "nhwc", "nchw")):
+        return "convolutions and GEMMs (library)"
+    if "reduce" in n:
+        return "reductions"
+    if any(k in n for k in ("elementwise", "copy", "cat", "fill")):
+        return "elementwise and copies"
+    return "other"
+
+
+def train2_config(fused: bool, dtype):
+    from imagegenerator_tpu_torch.models.bert import BertConfig
+    from imagegenerator_tpu_torch.train.stage2 import Stage2Config
+
+    return Stage2Config(compute_dtype=dtype, bert=BertConfig(fused_attention=fused, fused_ln=fused))
+
+
+def train2_batch(cfg, gen, batch):
+    """Seeded tokens with ragged padding and uint8 256 px images."""
+    import torch
+
+    T = cfg.seq_len
+    lengths = torch.randint(8, T + 1, (batch,), generator=gen, device="cuda")
+    return {
+        "input_ids": torch.randint(1, cfg.bert.vocab_size, (batch, T), generator=gen, device="cuda",
+                                   dtype=torch.int32),
+        "attention_mask": (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).int(),
+        "image": torch.randint(0, 256, (batch, cfg.resolution, cfg.resolution, 3), generator=gen,
+                               device="cuda", dtype=torch.uint8),
+    }
+
+
+def train2_noise(cfg, gen, batch, device="cuda"):
+    import torch
+
+    n = cfg.n_critic
+    kw = dict(generator=gen, device=device)
+    return {
+        "perm": torch.randperm(batch, **kw),
+        "ca1_eps": torch.randn((n, batch, cfg.c_dim), **kw),
+        "z": torch.randn((n, batch, cfg.z_dim), **kw),
+        "ca2_eps": torch.randn((n, batch, cfg.c_dim), **kw),
+        "gp_eps": torch.rand((n, batch, 1, 1, 1), **kw),
+    }
+
+
+def train2_system(cfg, state):
+    from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+    system = Stage2System(cfg, device="meta")
+    system.load_state_dict({k: v.clone() for k, v in state.items()}, assign=True)
+    return system
+
+
+def check_frozen(system, state) -> None:
+    """The frozen stack (parameters and G1's BatchNorm statistics) is
+    bit-equal to ``state``'s."""
+    import torch
+
+    now = system.state_dict()
+    keys = [k for k in state if k.startswith(FROZEN)]
+    moved = [k for k in keys if not torch.equal(now[k], state[k])]
+    if len(keys) < 200 or moved:
+        raise AssertionError(f"the frozen stack moved: {len(moved)} of {len(keys)} tensors, e.g. {moved[:2]}")
+
+
+def step_readings(system, metrics) -> dict:
+    """What phase 8 compares between two systems after one step."""
+    import torch
+
+    out = {f"metric {k}": ("gp" if k == "gp" else "metric", v) for k, v in metrics.items()}
+    for name, kind in (("gen_2", "bn"), ("critic_2", "bn_critic")):
+        stats = [b.flatten() for _, b in getattr(system, name).named_buffers()]
+        out[f"{name} BN stats"] = (kind, torch.cat(stats))
+    return out
+
+
+def compare_steps(tag, what, got, want) -> None:
+    """``step_readings`` of two systems: max abs difference over max(1,
+    the other side's max abs), held to ``STEP_TOL``."""
+    import torch
+
+    for name, (kind, a) in got.items():
+        a, b = a.double(), want[name][1].double()
+        if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+            raise AssertionError(f"{tag} {what}, {name}: not finite")
+        rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        limit = STEP_TOL[tag][kind]
+        ok = rel <= limit
+        log(f"  {tag} {what}, {name}: max abs diff / max(1, max abs) {rel:.3e} (limit {limit:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {what}: {name} disagrees")
+
+
+def phase_train2_steps(attention, layernorm, gen, card):
+    """Full-width steps on both text routes: times, the profile, the
+    launch counts and the frozen stack. Returns the state after them, the
+    per-step launch counts and the batch that ran."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage2 import TRAINED, Stage2System
+
+    set_tf32(False)
+    cfg = train2_config(True, torch.bfloat16)
+    t0 = time.perf_counter()
+    system = Stage2System(cfg, device="cuda", generator=gen)
+    init = {k: v.clone() for k, v in system.state_dict().items()}
+    n_params = {name: sum(p.numel() for p in getattr(system, attr).parameters()) for name, attr in TRAINED.items()}
+    log(f"  full-width random init, {sum(p.numel() for p in system.parameters()) / 1e6:.1f}M parameters "
+        f"(trained: {', '.join(f'{k} {v / 1e6:.2f}M' for k, v in n_params.items())}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batch_size = TRAIN2_BATCH
+    while True:
+        tokens = train2_batch(cfg, gen, batch_size)
+        tem = {"tem": system.embed_texts(tokens["input_ids"], tokens["attention_mask"]), "image": tokens["image"]}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for _ in range(2):  # warm-ups
+                system.train_step(tem, generator=step_gen)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch_size <= TRAIN2_CHECK_BATCH:
+                raise
+            log(f"  batch {batch_size} does not fit on this card ({str(e).splitlines()[0]}); "
+                f"running batch {batch_size // 2} instead")
+            del tokens, tem
+            system = train2_system(cfg, init)
+            torch.cuda.empty_cache()
+            batch_size //= 2
+    log(f"  batch {batch_size} fits: the tem route runs at batch {batch_size}")
+
+    samples = [wall_ms(lambda: system.train_step(tem, generator=step_gen), runs=1) for _ in range(5)]
+    tem_ms = statistics.median(samples)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train_step, tem route, batch {batch_size} bf16 uint8 images: {tem_ms:.3f} ms, "
+        f"{batch_size / tem_ms * 1e3:.1f} img/s (steps {', '.join(f'{t:.1f}' for t in samples)}); "
+        f"peak device memory {peak:.2f} GiB [{card}]")
+    host_ms, events = profiled(lambda: system.train_step(tem, generator=step_gen), calls=1)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profiled step, tem route: host {host_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / host_ms:.1f}%), {sum(e.count for e in events)} kernels")
+    classes = {}
+    for e in events:
+        c = classes.setdefault(kernel_class(e.key), [0.0, 0])
+        c[0] += e.self_device_time_total / 1e3
+        c[1] += e.count
+    for name, (ms, count) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}% {count:6d}x {name}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x {e.key[:90]}")
+
+    # the tokens route: one frozen BERT-base forward per step through the kernels
+    totals = dict.fromkeys(NO_BACKWARD, 0)
+    samples = []
+    for i in range(4):
+        reset_counts(attention, layernorm)
+        samples.append(wall_ms(lambda: system.train_step(tokens, generator=step_gen), runs=1))
+        counts = read_counts(attention, layernorm)
+        if counts != NO_BACKWARD:
+            raise AssertionError(f"tokens step {i + 1}: kernel launches {counts}, expected {NO_BACKWARD}")
+        for k in totals:
+            totals[k] += counts[k]
+    metrics = system.train_step(tokens, generator=step_gen)
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+        raise AssertionError(f"metrics not finite: {metrics}")
+    tokens_ms = statistics.median(samples[1:])
+    log(f"  train_step, tokens route, batch {batch_size} bf16, kernels on: {tokens_ms:.3f} ms, "
+        f"{batch_size / tokens_ms * 1e3:.1f} img/s (steps {', '.join(f'{t:.1f}' for t in samples)}, the "
+        f"first a warm-up); per step launches {NO_BACKWARD}; last metrics "
+        + ", ".join(f"{k} {v.item():.5g}" for k, v in metrics.items()) + f" [{card}]")
+    embed_ms = cuda_ms(lambda: system.embed_texts(tokens["input_ids"], tokens["attention_mask"]), inner=3)
+    log(f"  embed_texts at ({batch_size}, {cfg.seq_len}), kernels on: {embed_ms:.3f} ms by CUDA events [{card}]")
+
+    # (d) the frozen stack after 13 steps, and a planted fault
+    after = system.state_dict()
+    check_frozen(system, init)
+    for name, attr in TRAINED.items():
+        if not any(not torch.equal(after[k], v) for k, v in init.items() if k.startswith(attr + ".")):
+            raise AssertionError(f"{name}: no parameter changed")
+    log("  (d) the frozen stack is bit-equal after 13 steps; every trained module moved")
+    state = {k: v.clone() for k, v in after.items()}
+
+    def into_training_mode(module, _):
+        module.train()
+
+    hook = system.gen_1.register_forward_pre_hook(into_training_mode)
+
+    def frozen_in_training_mode():
+        small = {k: v[:TRAIN2_CHECK_BATCH] for k, v in tem.items()}
+        system.train_step(small, generator=step_gen)
+        check_frozen(system, init)
+
+    must_catch("a step that puts the frozen G1 in training mode (its BatchNorm statistics update)",
+               frozen_in_training_mode)
+    hook.remove()
+    del system, tokens, tem, after, init
+    torch.cuda.empty_cache()
+    return state, totals, batch_size, {"tem_ms": tem_ms, "tokens_ms": tokens_ms}
+
+
+def phase_train2_checks(attention, state, gen):
+    """(a) kernels on vs off and (b) the tem route vs the tokens route,
+    full width at batch ``TRAIN2_CHECK_BATCH``, f32 (TF32 off) and bf16,
+    with cuDNN held to its deterministic algorithms (two runs of one
+    computation otherwise differ by up to 1.3e-4 in gp after the five
+    critic updates)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        _train2_checks(attention, state, gen)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _train2_checks(attention, state, gen):
+    import torch
+
+    B = TRAIN2_CHECK_BATCH
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        set_tf32(False)
+        cfg_on, cfg_off = train2_config(True, dtype), train2_config(False, dtype)
+        batch = train2_batch(cfg_on, gen, B)
+        noise = train2_noise(cfg_on, gen, B)
+        ids, mask = batch["input_ids"], batch["attention_mask"]
+
+        def run(cfg, route="tokens", mask_for_tem=mask):
+            system = train2_system(cfg, state)
+            feed = batch
+            if route == "tem":
+                feed = {"tem": system.embed_texts(ids, mask_for_tem), "image": batch["image"]}
+            readings = step_readings(system, system.train_step(feed, noise=noise))
+            torch.cuda.synchronize()
+            return readings
+
+        off = run(cfg_off)
+        on = run(cfg_on)
+        compare_steps(tag, "(a) kernels on vs off", on, off)
+        compare_steps(tag, "(b) tem route vs tokens route", run(cfg_on, "tem"), on)
+        if dtype is torch.float32:
+            fused = attention.fused_attention
+
+            def maskless(q, k, v, mask, **kw):
+                return fused(q, k, v, None, **kw)
+
+            def kernels_ignore_the_mask():
+                attention.fused_attention = maskless
+                try:
+                    compare_steps(tag, "(a) kernels on, the padding mask ignored, vs off", run(cfg_on), off)
+                finally:
+                    attention.fused_attention = fused
+
+            must_catch("an attention kernel that ignores the padding mask", kernels_ignore_the_mask)
+            must_catch("embeddings precomputed without the padding mask",
+                       lambda: compare_steps(tag, "(b) tem route, embedded without the mask, vs tokens route",
+                                             run(cfg_on, "tem", torch.ones_like(mask)), on))
+
+
+def phase_train2_tiny(gen):
+    """(c) one step at ``Stage2Config.tiny()`` on the card against the same
+    step on the CPU, f32, TF32 off, from one state with the noise
+    replayed. This ties the card to the CPU, which the tests hold to JAX."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage2 import TRAINED, Stage2Config, Stage2System
+
+    set_tf32(False)
+    cfg = Stage2Config.tiny(n_critic=2)
+    B, T, r = 8, cfg.seq_len, cfg.resolution
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    init = Stage2System(cfg, device="cpu", generator=cpu_gen).state_dict()
+    lengths = torch.randint(3, T + 1, (B,), generator=cpu_gen)
+    batch = {"input_ids": torch.randint(1, cfg.bert.vocab_size, (B, T), generator=cpu_gen, dtype=torch.int32),
+             "attention_mask": (torch.arange(T)[None, :] < lengths[:, None]).int(),
+             "image": torch.randint(0, 256, (B, r, r, 3), generator=cpu_gen, dtype=torch.uint8)}
+    noise = train2_noise(cfg, cpu_gen, B, "cpu")
+
+    def run(device, noise):
+        system = Stage2System(cfg, device="meta")
+        system.load_state_dict({k: v.clone().to(device) for k, v in init.items()}, assign=True)
+        metrics = system.train_step({k: v.to(device) for k, v in batch.items()},
+                                    noise={k: v.to(device) for k, v in noise.items()})
+        return system, metrics
+
+    cpu, m_cpu = run("cpu", noise)
+
+    def check(noise, what):
+        card_sys, m_card = run("cuda", noise)
+        torch.cuda.synchronize()
+        worst = dict.fromkeys(("metric", "bn", "moment", "param"), 0.0)
+        fails = []
+
+        def hold(kind, name, got, want, atol_scale=1.0, where=None):
+            got, want = got.detach().double().cpu(), want.detach().double()
+            limit = TINY_TOL[kind] * atol_scale + TINY_TOL[kind] * want.abs()
+            over = ((got - want).abs() / limit)
+            if where is not None:
+                over = over[where]
+            if over.numel():
+                worst[kind] = max(worst[kind], over.max().item())
+                if not bool(torch.isfinite(got).all()) or over.max().item() > 1.0:
+                    fails.append(f"{kind} {name}: {over.max().item():.2f}x its limit")
+
+        for k in m_cpu:
+            hold("metric", k, m_card[k], m_cpu[k])
+        held = total = 0
+        for name, attr in TRAINED.items():
+            for (bn, b_cpu), (_, b_card) in zip(getattr(cpu, attr).named_buffers(),
+                                                getattr(card_sys, attr).named_buffers()):
+                hold("bn", f"{name}.{bn}", b_card, b_cpu)
+            pairs = zip(getattr(cpu, attr).named_parameters(), getattr(card_sys, attr).parameters())
+            for (pn, p_cpu), p_card in pairs:
+                m_ref = cpu.optimizers[name].state[p_cpu]["exp_avg"]
+                m_got = card_sys.optimizers[name].state[p_card]["exp_avg"]
+                # the critic head's text path and the biases after it: gradient 0 by structure
+                # (see tests/test_torch_stage1_step.py), all of it rounding noise
+                structural = name == "critic" and (pn.startswith("head.Dense_0.") or pn in (
+                    "head.Conv2d_0.bias", "head.Dense_1.bias"))
+                if structural:
+                    continue
+                live = torch.ones_like(m_ref, dtype=torch.bool)
+                if name == "critic" and pn == "head.Conv2d_0.weight":
+                    live[:, cfg.d2_channels[-1]:] = False  # its text input channels, likewise
+                scale = m_ref[live].abs().max().item()
+                hold("moment", f"{name}.{pn}", m_got, m_ref, scale, live)
+                above = live & (m_ref.abs() >= TINY_TOL["noise"] * scale)
+                hold("param", f"{name}.{pn}", p_card, p_cpu, 1.0, above)
+                held += int(above.sum())
+                total += m_ref.numel()
+        log(f"  {what}: worst reading over its limit: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+            + f" (limits {TINY_TOL}); parameters held at {held} of {total} elements "
+            f"{'ok' if not fails else 'FAIL'}")
+        if fails:
+            raise AssertionError(f"{what}: {len(fails)} readings over their limits, e.g. {fails[:3]}")
+        if held < 0.5 * total:
+            raise AssertionError(f"{what}: only {held} of {total} parameter elements were held")
+
+    check(noise, "(c) tiny step, card vs CPU, f32")
+    swapped = dict(noise, gp_eps=noise["gp_eps"].flip(0))
+    must_catch("a card-side step that replays the critic iterations' GP draws in the wrong order",
+               lambda: check(swapped, "(c) tiny step, card with the GP draws swapped, vs CPU"))
+
+
+def phase_train2_chain(tmp: Path, attention, layernorm, card):
+    """train.cli --stage 1 -> train.cli --stage 2 -> train.sample --ema,
+    full width, as a user runs them."""
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.train import cli, sample
+    from imagegenerator_tpu_torch.utils.png import write_png
+
+    log(f"phase 8: the chain through the CLIs, full width, bf16, batch {CHAIN_BATCH}")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    (tmp / "ds" / "imgs").mkdir(parents=True)
+    (tmp / "ds" / "ann").mkdir()
+    h, w = CHAIN_IMAGE_SIZE
+    yy, xx = np.mgrid[0:h, 0:w]
+    images, anns = [], []
+    for i in range(CHAIN_IMAGES):
+        chans = [np.sin(xx / (9.0 + i + c)) * 70 + np.cos(yy / (5.0 + 2 * c)) * 50 + 128
+                 + rng.integers(-20, 21, (h, w)) for c in range(3)]
+        write_png(str(tmp / "ds" / "imgs" / f"{i:012d}.png"),
+                  np.stack(chans, axis=2).clip(0, 255).astype(np.uint8))
+        images.append({"id": i, "file_name": f"{i:012d}.png"})
+        anns.append({"image_id": i, "caption": f"{CAPTIONS.split('|')[i % 4]}, take {i}"})
+    (tmp / "ds" / "ann" / "captions.json").write_text(json.dumps({"images": images, "annotations": anns}))
+    # the loader decodes with Pillow where it is installed; the route without
+    # it (the standard-library PNG reader, the torch resize) is run here either
+    # way and, beside Pillow, held to within 1 gray level of it
+    from imagegenerator_tpu_torch.data import coco
+
+    data = (tmp / "ds" / "imgs" / f"{0:012d}.png").read_bytes()
+    pillow, coco._pillow = coco._pillow, lambda: None
+    try:
+        plain = {size: coco.decode_resize_u8(data, size) for size in (64, 256)}
+    finally:
+        coco._pillow = pillow
+    if coco._pillow() is None:
+        decoder = "the standard-library PNG reader and the torch resize (no Pillow here)"
+    else:
+        worst = max(int(np.abs(plain[size].astype(np.int64) - coco.decode_resize_u8(data, size)).max())
+                    for size in plain)
+        decoder = f"Pillow; the route without Pillow is within {worst} gray level(s) of it (limit 1)"
+        if worst > 1:
+            raise AssertionError(f"the decode without Pillow is {worst} gray levels off Pillow's")
+    log(f"  {CHAIN_IMAGES} captioned {w} x {h} PNGs written in {time.perf_counter() - t0:.1f} s; "
+        f"decoded by {decoder}")
+
+    ckpt = tmp / "ckpt"
+    common = ["--data", str(tmp / "ds"), "--root", "imgs", "--ann_file", "ann/captions.json",
+              "--batch_size", str(CHAIN_BATCH), "--num_epochs", "1", "--checkpoint_dir", str(ckpt),
+              "--fused_attn", "--fused_ln", "--ema", "0.999", "--seed", str(SEED)]
+    steps = CHAIN_IMAGES // CHAIN_BATCH
+    with_backward = {k: steps * v for k, v in WITH_BACKWARD.items()}
+    forward_only = {k: steps * v for k, v in NO_BACKWARD.items()}
+    nothing = dict.fromkeys(NO_BACKWARD, 0)
+    runs = [
+        ("train.cli --stage 1", ["--stage", "1"], with_backward, steps),
+        ("train.cli --stage 1 again", ["--stage", "1"], nothing, 0),
+        ("train.cli --stage 2", ["--stage", "2", "--stage1_checkpoint", str(ckpt / "Stage1")], forward_only, steps),
+        ("train.cli --stage 2 again", ["--stage", "2", "--stage1_checkpoint", str(ckpt / "Stage1")], nothing, 0),
+    ]
+    launches = {}
+    for name, argv, want, want_steps in runs:
+        reset_counts(attention, layernorm)
+        t0 = time.perf_counter()
+        printed = run_cli(cli.main, argv + common)
+        torch.cuda.synchronize()
+        counts = read_counts(attention, layernorm)
+        launches[name] = counts
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s; launches {counts} [{card}]")
+        if counts != want:
+            raise AssertionError(f"{name}: kernel launches {counts}, expected {want}")
+        lines = printed.splitlines()
+        step_lines = [l for l in lines if l.startswith("step ")]
+        if len(step_lines) != want_steps:
+            raise AssertionError(f"{name}: {len(step_lines)} steps logged, expected {want_steps}")
+        values = [float(v) for l in step_lines for v in re.findall(r": (-?[\d.]+|nan|inf|-inf)(?:,|$)", l)]
+        if len(values) != 4 * want_steps or not all(map(np.isfinite, values)):
+            raise AssertionError(f"{name}: metrics {values}")
+        resumed = "Loaded checkpoint at epoch 0" in lines
+        if resumed != (want_steps == 0):
+            raise AssertionError(f"{name}: resume line {'missing' if not resumed else 'unexpected'}")
+    for stage in (1, 2):
+        root = ckpt / f"Stage{stage}"
+        found = sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+        want = ["LATEST_EPOCH", "epochs/checkpoint_epoch_0/state.npz", "latest/state.npz"]
+        if found != want or (root / "LATEST_EPOCH").read_text() != "0":
+            raise AssertionError(f"Stage{stage} checkpoint layout {found}")
+        size = (root / "latest" / "state.npz").stat().st_size / 2**20
+        with np.load(root / "latest" / "state.npz") as f:
+            keys = f.files
+            ema = sum(k.startswith("aux/ema/") for k in keys)
+            step = int(f["state/step"])
+        if step != steps or not ema or not all(k.startswith(("state/", "aux/ema/")) for k in keys):
+            raise AssertionError(f"Stage{stage} checkpoint: step {step}, {ema} EMA tensors")
+        log(f"  Stage{stage}: {want}, {size:.0f} MiB each, step {step}, {len(keys) - ema} state and "
+            f"{ema} EMA tensors")
+
+    out = tmp / "samples"
+    reset_counts(attention, layernorm)
+    t0 = time.perf_counter()
+    printed = run_cli(sample.main, ["--stage", "2", "--checkpoint_dir", str(ckpt), "--caption", CAPTIONS,
+                                    "-n", str(SAMPLES_PER_CAPTION), "-o", str(out), "--seed", str(SEED),
+                                    "--ema", "--fused_attn", "--fused_ln"])
+    torch.cuda.synchronize()
+    counts = read_counts(attention, layernorm)
+    log(f"  train.sample --stage 2 --ema: {time.perf_counter() - t0:.1f} s; launches {counts}")
+    if counts != NO_BACKWARD or not printed.startswith("Loaded checkpoint at epoch 0\n"):
+        raise AssertionError(f"sampling: launches {counts}, expected {NO_BACKWARD}; or no resume line")
+    pngs = sorted(out.glob("sample_*.png"))
+    sizes = {png_size(p) for p in pngs}
+    comments = [png_comment(p) for p in pngs]
+    want = [c for c in CAPTIONS.split("|") for _ in range(SAMPLES_PER_CAPTION)]
+    if len(pngs) != BATCH or sizes != {(256, 256)} or comments != want:
+        raise AssertionError(f"expected {BATCH} PNGs of 256x256 with their captions, got {len(pngs)} {sizes} {comments}")
+    log(f"  {len(pngs)} PNGs at 256x256 from the EMA weights, comment chunks match the captions")
+    return launches
+
+
+def phase_train2(attention, layernorm, gen, card):
+    log(f"phase 8: stage-2 training path, full width, bf16, n_critic 5, on {card}")
+    state, totals, batch_size, times = phase_train2_steps(attention, layernorm, gen, card)
+    log(f"phase 8: one step at batch {TRAIN2_CHECK_BATCH}, kernels on vs off, tem route vs tokens route")
+    phase_train2_checks(attention, state, gen)
+    del state
+    log("phase 8: one tiny step, card vs CPU")
+    phase_train2_tiny(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train2_chain(Path(tmp), attention, layernorm, card)
+    return totals, batch_size, times
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["train", "v2"], default=None,
+    parser.add_argument("--only", choices=["train", "train2", "v2"], default=None,
                         help="build, then run one slice's phases alone (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1641,6 +2192,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if args.only == "train":
         phase_train(attention, layernorm, gen, card)
+    if args.only == "train2":
+        phase_train2(attention, layernorm, gen, card)
     if args.only == "v2":
         phase_v2(vq_argmin, scanline_lerp, gen, card)
     if args.only:
@@ -1657,17 +2210,19 @@ def main() -> int:
     del flat, batch, noise
     train_launches, train_t = phase_train(attention, layernorm, gen, card)
     v2_launches, v2_errs, v2_t = phase_v2(vq_argmin, scanline_lerp, gen, card)
+    train2_launches, _, _ = phase_train2(attention, layernorm, gen, card)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the
     # stage-1 steps, the v2 CLI's first run); errors, times and bounds at
-    # that path's shape
+    # that path's shape. stage2_step_launches: the same count over phase 8's
+    # four counted tokens-route steps, which run the two forward kernels
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
-         "launches": launches["attention"], "max_abs_err": errs["attention", "bf16"],
-         **attn_t},
+         "launches": launches["attention"], "stage2_step_launches": train2_launches["attention"],
+         "max_abs_err": errs["attention", "bf16"], **attn_t},
         {"name": "attention_fwd_dropout", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
@@ -1681,8 +2236,8 @@ def main() -> int:
         {"name": "layernorm_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/layernorm_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:99",
-         "launches": launches["layernorm"], "max_abs_err": errs["layernorm", "f32"],
-         **ln_t},
+         "launches": launches["layernorm"], "stage2_step_launches": train2_launches["layernorm"],
+         "max_abs_err": errs["layernorm", "f32"], **ln_t},
         {"name": "layernorm_bwd", "route": "triton",
          "source": "imagegenerator_tpu_torch/ops/kernels/layernorm.py",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:145",
@@ -1703,7 +2258,7 @@ def main() -> int:
          **v2_t["scanline_lerp"]},
     ]
     for kernel in kernels:
-        if kernel["launches"] < 1:
+        if kernel["launches"] < 1 or kernel.get("stage2_step_launches", 1) < 1:
             raise AssertionError(f"{kernel['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

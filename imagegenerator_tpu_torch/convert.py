@@ -7,12 +7,13 @@ or ``Stage1State``'s (``params``, ``batch_stats``) and the path is
 flax's, e.g. ``frozen_params/gen_1/UpBlock_0/ConvTranspose2d_0/kernel``
 or ``batch_stats/critic/down_blocks_0/BatchNorm_0/bn/var``. The JAX
 side writes it with ``flax.traverse_util.flatten_dict(..., sep="/")``;
-``params.npz`` is this dict saved with ``np.savez``. Entries the port has
-no module for (the Stage-II critic, its optimizer state) are ignored.
+``params.npz`` is this dict saved with ``np.savez``; so is a training checkpoint
+(``checkpoint/manager.py``).
 
-``Stage1State``'s optimizer state and step count ride in the same dict:
-``step``, and per module m (``encoder`` ... ``critic``) the
-``ScaleByAdamState`` of its optax chain, ``opt_state/<m>/count`` and
+The optimizer state and step count of ``Stage1State`` and ``Stage2State``
+ride in the same dict: ``step``, and per trained module m (stage 1:
+``encoder`` ... ``critic``; stage 2: ``con_augment_2``, ``generator``,
+``critic``) the ``ScaleByAdamState`` of its optax chain, ``opt_state/<m>/count`` and
 ``opt_state/<m>/mu/<path>``, ``opt_state/<m>/nu/<path>``, where
 ``<path>`` is the parameter's flax path under ``params/<m>/``. On the
 torch side they are each optimizer's ``step``, ``exp_avg`` and
@@ -46,6 +47,8 @@ from imagegenerator_tpu_torch.ops.layers import BatchNorm, Conv2d, ConvTranspose
 from imagegenerator_tpu_torch.train import schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1System
 from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+_SYSTEMS = (Stage1System, Stage2System)  # they carry optimizers and a step count
 
 # layout -> (flax array -> torch array, torch array -> flax array)
 _LAYOUTS = {
@@ -122,11 +125,11 @@ def entries(module):
     return out
 
 
-def _to_torch(arr, layout, device):
+def to_torch(arr, layout, device):
     return torch.from_numpy(np.array(_LAYOUTS[layout][0](np.asarray(arr)), np.float32)).to(device)
 
 
-def _to_flax(t, layout):
+def to_flax(t, layout):
     # a copy: for an f32 CPU tensor .numpy() shares the tensor's memory,
     # which the optimizers update in place
     return np.array(_LAYOUTS[layout][1](t.detach().float().cpu().numpy()), order="C", copy=True)
@@ -135,41 +138,45 @@ def _to_flax(t, layout):
 def load_numpy(system, flat: dict, device=None) -> None:
     """Load a flat dict into ``system`` (a system or any module that
     ``entries`` takes, built on any device, ``meta`` included): its
-    tensors are replaced by ones on ``device``. A ``Stage1System`` also
-    takes the step count and optimizer state where the dict has them."""
+    tensors are replaced by ones on ``device``. A ``Stage1System`` or
+    ``Stage2System`` also takes the step count and optimizer state where
+    the dict has them."""
     sd = {}
     for key, flat_key, layout in entries(system):
         if flat_key not in flat:
             raise KeyError(f"{flat_key} (for {key}) is missing")
-        sd[key] = _to_torch(flat[flat_key], layout, device)
+        sd[key] = to_torch(flat[flat_key], layout, device)
     system.load_state_dict(sd, strict=True, assign=True)
-    if isinstance(system, Stage1System) and "step" in flat:
-        system.step = int(flat["step"])
-        _load_optimizers(system, flat, device)
+    if isinstance(system, _SYSTEMS):
+        system._optimizers = None  # they held the replaced parameters
+        if "step" in flat:
+            system.step = int(flat["step"])
+            _load_optimizers(system, flat, device)
 
 
 def to_numpy(system) -> dict:
     """The flat dict of ``system``'s tensors (inverse of ``load_numpy``),
-    with a ``Stage1System``'s step count and optimizer state."""
+    with a system's step count and optimizer state."""
     sd = system.state_dict()
     flat = {
-        flat_key: _to_flax(sd[key], layout)
+        flat_key: to_flax(sd[key], layout)
         for key, flat_key, layout in entries(system)
     }
-    if isinstance(system, Stage1System):
+    if isinstance(system, _SYSTEMS):
         flat["step"] = np.asarray(system.step, np.int32)
         flat.update(_optimizers_to_numpy(system))
     return flat
 
 
-def _param_entries(system):
+def param_entries(system):
     """(module, parameter, path under ``params/<module>/``, layout) of
-    every parameter of a system."""
+    every trained parameter of a system: those under ``params/`` (a
+    ``Stage2System``'s frozen stack lies under ``frozen_params/``)."""
     params = dict(system.named_parameters())
     out = []
     for key, flat_key, layout in entries(system):
-        if key in params:
-            _, module, path = flat_key.split("/", 2)
+        field, module, path = flat_key.split("/", 2)
+        if key in params and field == "params":
             out.append((module, params[key], path, layout))
     return out
 
@@ -180,14 +187,14 @@ def _load_optimizers(system, flat, device):
     opts = system.optimizers
     for opt in opts.values():
         opt.state.clear()
-    for module, p, path, layout in _param_entries(system):
+    for module, p, path, layout in param_entries(system):
         count = int(flat[f"opt_state/{module}/count"])
         if count == 0:
             continue
         opts[module].state[p] = {
             "step": torch.tensor(float(count)),
-            "exp_avg": _to_torch(flat[f"opt_state/{module}/mu/{path}"], layout, device),
-            "exp_avg_sq": _to_torch(flat[f"opt_state/{module}/nu/{path}"], layout, device),
+            "exp_avg": to_torch(flat[f"opt_state/{module}/mu/{path}"], layout, device),
+            "exp_avg_sq": to_torch(flat[f"opt_state/{module}/nu/{path}"], layout, device),
         }
 
 
@@ -197,12 +204,12 @@ def _optimizers_to_numpy(system) -> dict:
         f"opt_state/{m}/count": np.asarray(schedules.update_count(opt), np.int32)
         for m, opt in opts.items()
     }
-    for module, p, path, layout in _param_entries(system):
+    for module, p, path, layout in param_entries(system):
         state = opts[module].state.get(p) or {}
         for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
             t = state.get(key)
             flat[f"opt_state/{module}/{name}/{path}"] = (
-                _to_flax(t, layout) if t is not None else _to_flax(torch.zeros_like(p), layout)
+                to_flax(t, layout) if t is not None else to_flax(torch.zeros_like(p), layout)
             )
     return flat
 

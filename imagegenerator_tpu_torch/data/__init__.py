@@ -1,1 +1,2 @@
-"""Host-side data helpers: caption tokenizers."""
+"""Host-side data pipeline: storage adapters, the COCO caption dataset,
+caption tokenizers and a prefetching device loader."""

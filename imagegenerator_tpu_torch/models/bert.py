@@ -285,3 +285,11 @@ def strip_prefix(state_dict: dict) -> dict:
             out[key] = val
     return out
 
+
+def load_bert_checkpoint(path: str):
+    """A local HF torch checkpoint (``pytorch_model.bin`` / ``.pt``
+    state_dict) -> ``(state_dict, config)``: the encoder's own keys, which
+    ``BertEncoder.load_state_dict`` takes, and the architecture inferred
+    from their shapes."""
+    state_dict = strip_prefix(torch.load(path, map_location="cpu", weights_only=True))
+    return state_dict, config_from_state_dict(state_dict)

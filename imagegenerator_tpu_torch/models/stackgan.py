@@ -1,7 +1,6 @@
-"""StackGAN Stage-I / Stage-II generators and the Stage-I discriminator
-— counterpart of ``imagegenerator_tpu/models/stackgan.py`` (eval and
-train mode; the Stage-II discriminator waits for the stage-2 training
-slice).
+"""StackGAN Stage-I / Stage-II generators and discriminators —
+counterpart of ``imagegenerator_tpu/models/stackgan.py`` (eval and train
+mode).
 
 Both generators take and return images NHWC ``(B, H, W, 3)`` in [-1, 1],
 the JAX package's layout, and run NCHW inside: a permute of an NHWC
@@ -83,6 +82,8 @@ class StageIDiscriminator(nn.Module):
     Submodule names are flax's (``conv_in``, ``down_blocks_N``,
     ``head``)."""
 
+    HEAD_CHANNELS = 128  # the head's 1x1 conv width
+
     def __init__(self, tem_size=512, nd=128, channels=(64, 128, 256, 512),
                  dtype=None, *, device=None, generator=None):
         super().__init__()
@@ -91,7 +92,7 @@ class StageIDiscriminator(nn.Module):
         self.n_down = len(channels) - 1
         for i, (cin, cout) in enumerate(zip(channels, channels[1:])):
             setattr(self, f"down_blocks_{i}", DownBlock(cin, cout, **kw))
-        self.head = _TextImageCriticHead(tem_size, nd, channels[-1], **kw)
+        self.head = _TextImageCriticHead(tem_size, nd, channels[-1], self.HEAD_CHANNELS, **kw)
 
     def features(self, img):
         """Image tower: NHWC ``(B, r, r, 3)`` -> NCHW ``(B, C, 4, 4)``."""
@@ -105,6 +106,18 @@ class StageIDiscriminator(nn.Module):
 
     def forward(self, img, tem):
         return self.score(self.features(img), tem)
+
+
+class StageIIDiscriminator(StageIDiscriminator):
+    """The Stage-I critic's shape at 256 px: a stem conv and five
+    DownBlocks, ``channels`` (16, 32, 64, 128, 256, 512), and a head whose
+    1x1 conv is 160 wide. ``features`` / ``score`` split as there."""
+
+    HEAD_CHANNELS = 160
+
+    def __init__(self, tem_size=512, nd=128, channels=(16, 32, 64, 128, 256, 512),
+                 dtype=None, *, device=None, generator=None):
+        super().__init__(tem_size, nd, channels, dtype, device=device, generator=generator)
 
 
 class ResidualBlock(nn.Module):

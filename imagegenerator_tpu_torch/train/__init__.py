@@ -1,1 +1,1 @@
-"""Stage-1/2 systems (the sampling subset) and the sampling CLI."""
+"""Stage-1/2 systems, the trainers, the EMA, and the training and sampling CLIs."""

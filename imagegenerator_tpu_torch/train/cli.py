@@ -1,0 +1,254 @@
+"""v1 training CLI: train stage 1 (64 px) or stage 2 (256 px) on a CUDA
+card — counterpart of ``imagegenerator_tpu/train/cli.py``, with its flags
+and defaults (TEM_SIZE=512, lr=1e-3, c_dim=128, z_dim=100, Nd=128, 500
+epochs, batch 32).
+
+    python -m imagegenerator_tpu_torch.train.cli --stage 1 \\
+        --data /data/coco --root train2017 --ann_file annotations/captions_train2017.json \\
+        --checkpoint_dir ./checkpoints --fused_attn --fused_ln --ema 0.999
+    python -m imagegenerator_tpu_torch.train.cli --stage 2 \\
+        --stage1_checkpoint ./checkpoints/Stage1 ... --checkpoint_dir ./checkpoints
+
+Checkpoints go to ``<checkpoint_dir>/Stage{N}/`` (``checkpoint/manager.py``);
+running the same command again resumes from the latest one and prints
+``Loaded checkpoint at epoch N``.
+
+Where the JAX CLI differs: ``--device`` (default ``cuda``, which must be
+available); no ``--rng_impl`` (an XLA knob); ``--tp > 1``, ``--multihost``
+and ``--profile_dir`` exit, their paths are not ported yet. One process
+drives one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="StackGAN-style two-stage trainer (PyTorch, CUDA)")
+    p.add_argument("--stage", type=int, choices=(1, 2), default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda must be available when asked")
+    # data
+    p.add_argument("--data", type=str, default="gs://data-and-checkpoints-bucket",
+                   help="dataset store url (gs://bucket, local path, mem://)")
+    p.add_argument("--root", type=str, default="dataset/train2017")
+    p.add_argument("--ann_file", type=str,
+                   default="dataset/annotations/captions_train2017.json")
+    # hyperparameters
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--num_epochs", type=int, default=500)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--encoder_lr", type=float, default=5e-5)
+    p.add_argument("--tem_size", type=int, default=512)
+    p.add_argument("--c_dim", type=int, default=128)
+    p.add_argument("--z_dim", type=int, default=100)
+    p.add_argument("--nd", type=int, default=128)
+    p.add_argument("--n_critic", type=int, default=5)
+    p.add_argument("--lambda_gp", type=float, default=10.0)
+    p.add_argument("--seq_len", type=int, default=128)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--kl_mode", choices=("correct", "faithful"), default="correct")
+    p.add_argument("--dtype", choices=("f32", "bf16"), default="bf16")
+    # infra
+    p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
+    p.add_argument("--stage1_checkpoint", type=str, default=None,
+                   help="stage-2: directory of the stage-1 checkpoint to freeze "
+                        "(the stage-1 run's <checkpoint_dir>/Stage1)")
+    p.add_argument("--logdir", type=str, default=None)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model config (CPU smoke runs)")
+    p.add_argument("--bert_vocab", type=int, default=28996)
+    p.add_argument("--gelu", choices=["exact", "exact_outbwd", "tanh"], default="exact",
+                   help="text-encoder GELU flavor: 'exact' (erf, what HF SpanBERT "
+                        "computes; default), 'exact_outbwd' (the same forward; the "
+                        "backward recovers the CDF from the saved gelu output, "
+                        "ops/gelu.py), or 'tanh' (the approximation)")
+    p.add_argument("--text_reuse_mis", action="store_true",
+                   help="stage 1: reuse the matched-caption embeddings for the "
+                        "mismatched pairs (tem_mis = tem[perm]), which halves the "
+                        "text-encoder work. Exact when text dropout is off (then it "
+                        "is automatic); under dropout the mismatched pair shares "
+                        "its matched twin's dropout sample")
+    p.add_argument("--dropout_bits", type=int, choices=[8, 16, 32], default=None,
+                   help="mask-draw width of the text encoder's dropout sites "
+                        "outside the fused attention kernel: 32 = torch's own "
+                        "dropout (default); 16 or 8 draw that many random bits per "
+                        "element and keep an element where they fall below the "
+                        "keep probability rounded to 2^-bits (ops/dropout.py). "
+                        "Unbiased: kept values are rescaled by that rounded "
+                        "probability")
+    p.add_argument("--fused_attn", action="store_true",
+                   help="text-encoder attention (QK^T + softmax + dropout + PV) "
+                        "through the hand-written CUDA kernels, forward and "
+                        "backward (ops/kernels/attention.py); the dropout mask "
+                        "comes from a counter hash of a per-layer seed")
+    p.add_argument("--fused_ln", action="store_true",
+                   help="text-encoder LayerNorms through the hand-written kernels "
+                        "(ops/kernels/layernorm.py)")
+    p.add_argument("--bert_checkpoint", type=str, default=None,
+                   help="local HF torch state_dict (pytorch_model.bin / .pt) of "
+                        "the pretrained text encoder; the architecture is "
+                        "inferred from the weights")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="local HF tokenizer dir/name; default: the "
+                        "dependency-free HashTokenizer")
+    p.add_argument("--multihost", action="store_true",
+                   help="several processes over torch.distributed: not ported yet "
+                        "(exits)")
+
+    def _decay(v):
+        d = float(v)
+        if not 0.0 <= d < 1.0:
+            raise argparse.ArgumentTypeError(f"EMA decay must be in [0, 1), got {d}")
+        return d
+
+    p.add_argument("--ema", type=_decay, default=None, metavar="DECAY",
+                   help="keep an exponential moving average of the generator-side "
+                        "parameters at this decay (e.g. 0.999); stored in "
+                        "checkpoints as a side dict and sampled with "
+                        "train.sample --ema (train/ema.py)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="capture a profiler trace of the run: not ported yet (exits)")
+    p.add_argument("--image_dtype", choices=["uint8", "float32"], default="uint8",
+                   help="loader -> device image dtype. uint8 (default): the loader "
+                        "ships resampled bytes and the train step normalises to "
+                        "[-1, 1] on the device, a quarter of the host-to-device "
+                        "bytes at <= 0.5/255 quantization after the resample. "
+                        "float32: normalised on the host, 4x the bytes")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (stage 1): not ported yet, any "
+                        "value above 1 exits")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.tp > 1:
+        raise SystemExit("--tp > 1: tensor parallelism is not ported yet "
+                         "(ROADMAP.md queue 1, 'DP and TP through torch.distributed')")
+    if args.multihost:
+        raise SystemExit("--multihost: data parallelism over torch.distributed is not "
+                         "ported yet (ROADMAP.md queue 1, 'DP and TP through "
+                         "torch.distributed')")
+    if args.profile_dir:
+        raise SystemExit("--profile_dir: the profiler hook is not ported yet "
+                         "(ROADMAP.md queue 1, 'utils/profiling.py'); chip_smoke.py "
+                         "prints a torch.profiler table of both train steps")
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    _refuse_unported(args)
+
+    import torch
+
+    from imagegenerator_tpu_torch import convert
+    from imagegenerator_tpu_torch.checkpoint import CheckpointManager
+    from imagegenerator_tpu_torch.data.coco import CocoCaptions
+    from imagegenerator_tpu_torch.data.pipeline import DataLoader
+    from imagegenerator_tpu_torch.data.storage import open_store
+    from imagegenerator_tpu_torch.data.tokenizer import make_tokenizer
+    from imagegenerator_tpu_torch.models import bert
+    from imagegenerator_tpu_torch.train import stage1 as s1
+    from imagegenerator_tpu_torch.train import stage2 as s2
+    from imagegenerator_tpu_torch.train.trainer import Stage1Trainer, Stage2Trainer, TrainerOptions
+    from imagegenerator_tpu_torch.utils.device import entry_device
+
+    try:
+        device = entry_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {args.device}: {e}") from e
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+
+    # Pretrained text encoder: its inferred architecture flows into the
+    # train config; the weights are loaded after the system is built.
+    bert_state = None
+    bert_cfg = bert.BertConfig(vocab_size=args.bert_vocab)
+    if args.bert_checkpoint:
+        bert_state, bert_cfg = bert.load_bert_checkpoint(args.bert_checkpoint)
+        print(f"Loaded pretrained BERT: {bert_cfg.num_layers}L/"
+              f"{bert_cfg.hidden_size}H vocab={bert_cfg.vocab_size}")
+    flags = dict(
+        gelu_approximate=args.gelu == "tanh",
+        gelu_output_bwd=args.gelu == "exact_outbwd",
+        fused_ln=args.fused_ln,
+        fused_attention=args.fused_attn,
+        dropout_bits=args.dropout_bits or bert_cfg.dropout_bits,
+    )
+    bert_cfg = dataclasses.replace(bert_cfg, **flags)
+
+    common = dict(
+        tem_size=args.tem_size,
+        c_dim=args.c_dim,
+        z_dim=args.z_dim,
+        nd=args.nd,
+        n_critic=args.n_critic,
+        lambda_gp=args.lambda_gp,
+        kl_mode=args.kl_mode,
+        seq_len=args.seq_len,
+        compute_dtype=dtype,
+        bert=bert_cfg,
+    )
+    # the tiny configs keep their own widths, f32 and the tiny BERT (with the
+    # flags above); with a pretrained checkpoint: tiny GAN, real encoder
+    tiny_bert = bert_cfg if bert_state is not None else dataclasses.replace(
+        bert.BertConfig.tiny(), **flags)
+    tiny_kw = dict(n_critic=args.n_critic, bert=tiny_bert)
+    if bert_state is not None:
+        tiny_kw.update(seq_len=args.seq_len)
+    s1_kw = {"text_reuse_mismatched": True} if args.text_reuse_mis else {}
+
+    def stage1_config(**kw):
+        if args.tiny:
+            return s1.Stage1Config.tiny(**tiny_kw, **kw)
+        return s1.Stage1Config(lr=args.lr, encoder_lr=args.encoder_lr, **common, **kw)
+
+    if args.stage == 1:
+        cfg = stage1_config(**s1_kw)
+    else:
+        cfg = s2.Stage2Config.tiny(**tiny_kw) if args.tiny else s2.Stage2Config(lr=args.lr, **common)
+
+    # the dataset's image size follows the config's resolution
+    dataset = CocoCaptions(open_store(args.data), args.root, args.ann_file,
+                           image_size=cfg.resolution, image_dtype=args.image_dtype)
+    tokenizer = make_tokenizer(args.tokenizer, args.seq_len, cfg)
+    loader = DataLoader(dataset, tokenizer, batch_size=args.batch_size, seed=args.seed,
+                        device=device)
+    options = TrainerOptions(
+        num_epochs=args.num_epochs,
+        seed=args.seed,
+        checkpoint_dir=f"{args.checkpoint_dir}/Stage{args.stage}",
+        logdir=args.logdir,
+        ema_decay=args.ema,
+    )
+    init = torch.Generator(device=device).manual_seed(args.seed)
+
+    if args.stage == 1:
+        system = s1.Stage1System(cfg, device=device, generator=init)
+        trainer = Stage1Trainer(system, loader, options)
+        start_epoch = trainer.init_state()
+        if bert_state is not None and start_epoch == 0:
+            # fresh runs only: a resumed checkpoint carries the fine-tuned weights
+            system.encoder.load_state_dict(bert_state)
+        trainer.fit(start_epoch)
+        return
+
+    system = s2.Stage2System(cfg, device=device, generator=init)
+    trainer = Stage2Trainer(system, loader, options)
+    stage1_system = None
+    if args.stage1_checkpoint:
+        flat, _ = CheckpointManager(args.stage1_checkpoint).restore_latest()
+        if flat is None:
+            raise SystemExit(f"--stage1_checkpoint: no checkpoint found under "
+                             f"{args.stage1_checkpoint}")
+        stage1_system = convert.stage1_from_numpy(flat, stage1_config(), device)
+    start_epoch = trainer.init_state(stage1_system)
+    if bert_state is not None and start_epoch == 0 and stage1_system is None:
+        # no stage-1 checkpoint to inherit from: freeze the pretrained encoder
+        system.encoder.load_state_dict(bert_state)
+    trainer.fit(start_epoch)
+
+
+if __name__ == "__main__":
+    main()

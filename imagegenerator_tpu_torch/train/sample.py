@@ -9,13 +9,15 @@ sample, ``sample_{i}_{j}.png``, with the caption in a ``comment`` chunk.
         --checkpoint_dir ./checkpoints --caption "a red bus|a snowy street" \\
         -n 4 -o samples/ --fused_attn --fused_ln
 
-Weights come from ``<checkpoint_dir>/Stage{N}/params.npz``: the flat
-``<field>/<flax path>`` dict of ``imagegenerator_tpu_torch.convert``.
-Where the JAX CLI differs: ``--device`` (default ``cuda``, which must be
-available), and ``--fused_attn``/``--fused_ln`` route BERT's attention
-and LayerNorms through the hand-written kernels, as the training CLI's
-flags do there. Orbax checkpoints and ``--ema`` wait for the checkpoint
-port.
+Weights come from the training run's ``--checkpoint_dir``: the latest
+complete epoch under ``Stage{N}/`` (``checkpoint/manager.py``), with
+``--ema`` the averages a ``--ema DECAY`` run stored beside it; or, where
+no training checkpoint is there, from ``Stage{N}/params.npz``. Both hold
+the flat ``<field>/<flax path>`` dict of
+``imagegenerator_tpu_torch.convert``. Where the JAX CLI differs:
+``--device`` (default ``cuda``, which must be available), and
+``--fused_attn``/``--fused_ln`` route BERT's attention and LayerNorms
+through the hand-written kernels, as the training CLI's flags do.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", type=int, choices=[1, 2], default=2,
                    help="1 = 64px generator, 2 = 256px refinement stack")
     p.add_argument("--checkpoint_dir", required=True,
-                   help="directory holding Stage{N}/params.npz")
+                   help="the training run's --checkpoint_dir: the latest "
+                        "complete epoch under Stage{N}/ is restored, else "
+                        "Stage{N}/params.npz")
     p.add_argument("--caption", required=True,
                    help="caption(s), '|'-separated")
 
@@ -48,7 +52,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="output directory (created if missing)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ema", action="store_true",
-                   help="sample EMA averages (not ported yet: exits)")
+                   help="sample from the EMA averages a --ema training run "
+                        "stored (train/ema.py) instead of the live weights")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model config (must match the weights)")
     p.add_argument("--device", default="cuda",
@@ -57,8 +62,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--c_dim", type=int, default=128)
     p.add_argument("--z_dim", type=int, default=100)
     p.add_argument("--nd", type=int, default=128,
-                   help="critic text width of the training run; sampling "
-                        "has no critic and ignores it")
+                   help="critic text width of the training run (the "
+                        "checkpoint holds the critic too)")
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--bert_vocab", type=int, default=28996)
@@ -88,8 +93,10 @@ def main(argv=None):
     import torch
 
     from imagegenerator_tpu_torch import convert
+    from imagegenerator_tpu_torch.checkpoint import CheckpointManager
     from imagegenerator_tpu_torch.data.tokenizer import make_tokenizer
     from imagegenerator_tpu_torch.models import bert
+    from imagegenerator_tpu_torch.train import ema as ema_lib
     from imagegenerator_tpu_torch.train import stage1 as s1
     from imagegenerator_tpu_torch.train import stage2 as s2
     from imagegenerator_tpu_torch.utils.png import write_png
@@ -97,11 +104,6 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available")
-    if args.ema:
-        raise SystemExit(
-            "--ema: EMA checkpoints are not ported yet; sample the live "
-            "weights without --ema"
-        )
     captions = [c.strip() for c in args.caption.split("|") if c.strip()]
     if not captions:
         raise SystemExit("--caption is empty")
@@ -115,6 +117,7 @@ def main(argv=None):
         tem_size=args.tem_size,
         c_dim=args.c_dim,
         z_dim=args.z_dim,
+        nd=args.nd,
         seq_len=args.seq_len,
         compute_dtype=dtype,
         bert=bert_cfg,
@@ -130,15 +133,26 @@ def main(argv=None):
         fused_attention=args.fused_attn,
     ))
 
-    path = os.path.join(args.checkpoint_dir, f"Stage{args.stage}", "params.npz")
-    if not os.path.exists(path):
-        raise SystemExit(f"no checkpoint found at {path}")
-    with np.load(path) as f:
-        flat = dict(f)
+    stage_dir = os.path.join(args.checkpoint_dir, f"Stage{args.stage}")
+    flat, aux, start_epoch = CheckpointManager(stage_dir).restore_latest_with_aux()
+    path = os.path.join(stage_dir, "params.npz")
+    if flat is None and os.path.exists(path):
+        with np.load(path) as f:
+            flat = dict(f)
+    if flat is None:
+        raise SystemExit(f"no checkpoint found under {stage_dir}")
+    if args.ema and aux is None:
+        raise SystemExit(
+            "--ema: this checkpoint has no EMA side tree (train with --ema "
+            "DECAY to produce one)"
+        )
     from_numpy = convert.stage1_from_numpy if args.stage == 1 else convert.stage2_from_numpy
     system = from_numpy(flat, cfg, device)
-    if "epoch" in flat:
-        print(f"Loaded checkpoint at epoch {int(flat['epoch'])}")
+    if args.ema:
+        ema = {k[len("ema/"):]: v for k, v in aux.items() if k.startswith("ema/")}
+        ema_lib.swap_in(system, ema_lib.from_numpy(ema, system, device))
+    if start_epoch:
+        print(f"Loaded checkpoint at epoch {start_epoch - 1}")
     else:
         print(f"Loaded checkpoint {path}")
 

@@ -114,6 +114,25 @@ class Stage1Config:
         return cls(**defaults)
 
 
+def critic_loss(critic, real, fake, tem, tem_mis, gp_eps, lambda_gp):
+    """One critic iteration's loss, with its graph: the image tower in
+    training mode on ``real``, ``fake``, then the GP's interpolation, in
+    that order; tower(real) scored against ``tem`` and ``tem_mis``.
+    Returns ``(mean([s_mis, s_fake]) - mean(s_real) + lambda_gp * gp,
+    gp)``."""
+
+    def head(feat, t):
+        return critic.score(feat, t).reshape(-1).float()
+
+    feat_real = critic.features(real)
+    feat_fake = critic.features(fake)
+    s_real, s_mis, s_fake = head(feat_real, tem), head(feat_real, tem_mis), head(feat_fake, tem)
+    gp, _ = losses.gradient_penalty_aux(
+        lambda images: (head(critic.features(images), tem), None), real, fake, eps=gp_eps
+    )
+    return losses.wgan_critic_loss(s_real, torch.cat([s_mis, s_fake])) + lambda_gp * gp, gp
+
+
 class Stage1System(nn.Module):
     """The five modules of the JAX state (``encoder``, ``projection``,
     ``con_augment``, ``generator``, ``critic``), their optimizers and the
@@ -210,18 +229,7 @@ class Stage1System(nn.Module):
     def _critic_update(self, real, fake, tem, tem_mis, gp_eps):
         """One critic iteration's loss and Adam update; returns
         ``(loss, gp)`` detached."""
-        critic = self.critic
-
-        def head(feat, t):
-            return critic.score(feat, t).reshape(-1).float()
-
-        feat_real = critic.features(real)
-        feat_fake = critic.features(fake)
-        s_real, s_mis, s_fake = head(feat_real, tem), head(feat_real, tem_mis), head(feat_fake, tem)
-        gp, _ = losses.gradient_penalty_aux(
-            lambda images: (head(critic.features(images), tem), None), real, fake, eps=gp_eps
-        )
-        loss = losses.wgan_critic_loss(s_real, torch.cat([s_mis, s_fake])) + self.config.lambda_gp * gp
+        loss, gp = critic_loss(self.critic, real, fake, tem, tem_mis, gp_eps, self.config.lambda_gp)
         self.optimizers["critic"].zero_grad(set_to_none=True)
         loss.backward()
         self._update("critic")

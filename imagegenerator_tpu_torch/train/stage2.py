@@ -1,7 +1,43 @@
-"""Stage-II system, sampling subset — counterpart of
-``imagegenerator_tpu/train/stage2.py``: the frozen stage-1 stack
-(text -> projection -> CA1 -> G1, 64 px) under CA2 -> G2 (256 px), all in
-eval mode. Training waits for a later port.
+"""Stage-II system: the 256 px refinement WGAN-GP training step and
+sampling — counterpart of ``imagegenerator_tpu/train/stage2.py``.
+
+The frozen stage-1 stack (text encoder -> projection -> CA1 -> G1, 64 px)
+feeds CA2 -> G2 (256 px) and the Stage-II critic. ``train_step`` runs the
+JAX step eagerly and in place: ``n_critic`` critic updates, each with the
+second-order gradient penalty, then one update of CA2 and G2. The
+modules, the three optimizers and the step count live on the system.
+
+Order of work in a step (JAX ``train_step``):
+  1. the caption permutation; the text embedding ``tem`` (``batch['tem']``,
+     or ONE forward of the frozen encoder and projection in eval mode) and
+     ``tem_mis = tem[perm]``;
+  2. critic iteration i: the frozen CA1 -> G1 (eval mode) on that
+     iteration's noise, then CA2 -> G2 in training mode without grad (G2's
+     BatchNorm statistics update); the critic's image tower on real, fake,
+     then the GP's interpolation, in that order (its BatchNorm statistics
+     thread through the three passes); tower(real) scored against ``tem``
+     and ``tem_mis``; ``loss = mean([s_mis, s_fake]) - mean(s_real) +
+     lambda * gp``; an Adam update of the critic;
+  3. the generator step on the last iteration's noise: G2 once more from
+     the carried statistics and a full critic forward in training mode
+     (which updates the critic's statistics once more), ``loss =
+     -mean(s_fake) + kl(mu2, sigma2)``. Its gradients are taken with
+     ``torch.autograd.grad`` in CA2's and G2's parameters alone, so
+     nothing of it reaches the critic. The JAX step runs the frozen stack
+     again on the last iteration's keys; the stack is deterministic, so
+     the port keeps that iteration's 64 px images instead (same values).
+
+Only CA2, G2 and the critic are ever in training mode or seen by an
+optimizer; the frozen stack stays in eval mode under ``no_grad``.
+
+Noise comes from ``generator`` on the device in a fixed order: the
+permutation, then per iteration (ca1_eps, z, ca2_eps, gp_eps). A
+``noise`` dict replays given draws: ``perm (B,)`` and ``ca1_eps``, ``z``,
+``ca2_eps``, ``gp_eps``, each indexed by iteration.
+
+``remat`` and ``unroll_critic`` are XLA knobs. ``unroll_critic`` has no
+effect in eager PyTorch; ``remat=True`` is not ported and ``train_step``
+raises ``NotImplementedError``. Data parallelism is not in this port yet.
 """
 
 from __future__ import annotations
@@ -14,28 +50,51 @@ from torch import nn
 
 from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
 from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
-from imagegenerator_tpu_torch.models.stackgan import StageIGenerator, StageIIGenerator
+from imagegenerator_tpu_torch.models.stackgan import (
+    StageIGenerator,
+    StageIIDiscriminator,
+    StageIIGenerator,
+)
 from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.train import losses, schedules
+from imagegenerator_tpu_torch.train.stage1 import Stage1Config, critic_loss
 from imagegenerator_tpu_torch.utils.device import entry_device
+
+# the JAX state's names of the trained modules -> the system's attributes
+TRAINED = {"con_augment_2": "con_augment_2", "generator": "gen_2", "critic": "critic_2"}
+GEN_SIDE = ("con_augment_2", "generator")
+# a Stage1System's modules -> the frozen stack's
+FROM_STAGE1 = {"encoder": "encoder", "projection": "projection",
+               "con_augment": "con_augment_1", "generator": "gen_1"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Stage2Config:
-    """Model shape of the JAX ``Stage2Config`` (defaults: the reference's
+    """The JAX ``Stage2Config``'s fields and defaults (the reference's
     64 -> 256 px pipeline over BERT-base); ``compute_dtype`` is a torch
     dtype or None (f32)."""
 
     tem_size: int = 512
     c_dim: int = 128
     z_dim: int = 100
+    nd: int = 128
     h_dim: int = 256
+    n_critic: int = 5
+    lambda_gp: float = 10.0
+    lr: float = 1e-3
+    sched_step: int = 100
+    sched_gamma: float = 0.5
+    kl_mode: str = "correct"
     seq_len: int = 128
     num_residual: int = 4
+    remat: bool = False
+    unroll_critic: int = 1
     gen1_channels: tuple = (192, 96, 48, 24)
     g2_in_channels: int = 128
     g2_feat_channels: int = 512
     g2_res_channels: int = 320
     g2_up_channels: tuple = (320, 160, 80)
+    d2_channels: tuple = (16, 32, 64, 128, 256, 512)
     bert: BertConfig = dataclasses.field(default_factory=BertConfig)
     compute_dtype: Any = None
 
@@ -57,6 +116,7 @@ class Stage2Config:
             tem_size=32,
             c_dim=16,
             z_dim=12,
+            nd=16,
             h_dim=16,
             seq_len=8,
             num_residual=1,
@@ -65,18 +125,38 @@ class Stage2Config:
             g2_feat_channels=16,
             g2_res_channels=8,
             g2_up_channels=(16, 8),
+            d2_channels=(8, 16, 32),
             bert=BertConfig.tiny(),
         )
         defaults.update(kw)
         return cls(**defaults)
 
+    def stage1_config(self, **kw) -> Stage1Config:
+        """The config of the stage-1 system whose trained modules this
+        one freezes."""
+        return Stage1Config(
+            tem_size=self.tem_size,
+            c_dim=self.c_dim,
+            z_dim=self.z_dim,
+            nd=self.nd,
+            h_dim=self.h_dim,
+            seq_len=self.seq_len,
+            gen_channels=self.gen1_channels,
+            bert=self.bert,
+            compute_dtype=self.compute_dtype,
+            **kw,
+        )
+
 
 class Stage2System(nn.Module):
     """Module names are the JAX state's; ``FLAX_FIELDS`` maps each to its
     subtree of ``Stage2State`` (``frozen_params``, ``frozen_gen_stats``,
-    ``params``, ``batch_stats``). Built on the card unless ``device``
-    names another (``"cpu"``, ``"meta"``); without a card the default
-    raises."""
+    ``params``, ``batch_stats``). The system also holds the three
+    optimizers (under the JAX state's names ``con_augment_2``,
+    ``generator``, ``critic``) and the step count. Between steps every
+    module is in eval mode (``sample``). Built on the card unless
+    ``device`` names another (``"cpu"``, ``"meta"``); without a card the
+    default raises."""
 
     FLAX_FIELDS = {
         "encoder": ("frozen_params/encoder", None),
@@ -85,6 +165,7 @@ class Stage2System(nn.Module):
         "gen_1": ("frozen_params/gen_1", "frozen_gen_stats"),
         "con_augment_2": ("params/con_augment_2", None),
         "gen_2": ("params/generator", "batch_stats/generator"),
+        "critic_2": ("params/critic", "batch_stats/critic"),
     }
 
     def __init__(self, config: Stage2Config, *, device=None, generator=None):
@@ -107,8 +188,42 @@ class Stage2System(nn.Module):
             dtype=dt,
             **kw,
         )
+        self.critic_2 = StageIIDiscriminator(c.tem_size, c.nd, c.d2_channels, dtype=dt, **kw)
+        self.step = 0
+        self._optimizers = None
         self.eval()
 
+    @property
+    def optimizers(self) -> dict:
+        """One Adam per trained module, made at first use on the modules'
+        current parameters (a system loaded by ``convert`` replaces them).
+        No optimizer holds a parameter of the frozen stack."""
+        if self._optimizers is None:
+            self._optimizers = {
+                name: schedules.adam(getattr(self, attr).parameters(), self.config.lr)
+                for name, attr in TRAINED.items()
+            }
+        return self._optimizers
+
+    def _update(self, name):
+        """Set ``name``'s lr from its own update count, then step it. The
+        critic's StepLR boundary is ``sched_step * n_critic`` (it updates
+        n_critic times per step)."""
+        c = self.config
+        step_size = c.sched_step * (c.n_critic if name == "critic" else 1)
+        opt = self.optimizers[name]
+        schedules.set_lr(opt, c.lr, step_size, c.sched_gamma)
+        opt.step()
+
+    def load_stage1(self, stage1_system) -> None:
+        """Take the frozen stack from a trained ``Stage1System``: its
+        encoder, projection, CA and generator (parameters and BatchNorm
+        statistics), copied."""
+        with torch.no_grad():
+            for theirs, ours in FROM_STAGE1.items():
+                getattr(self, ours).load_state_dict(getattr(stage1_system, theirs).state_dict())
+
+    @torch.no_grad()
     def embed_texts(self, tokens, mask):
         """Caption embeddings through the frozen encoder + projection;
         feed them back as ``batch['tem']``."""
@@ -125,10 +240,10 @@ class Stage2System(nn.Module):
             )
         return self.gen_1(torch.cat([c_hat1, z.float()], dim=1))
 
-    def _frozen_64(self, tokens, mask, generator, noise):
-        """Frozen text -> CA1 -> G1. Returns ``(tem, fake_64)``."""
-        tem = self.embed_texts(tokens, mask)
-        return tem, self._frozen_64_from_tem(tem, generator, noise)
+    def _gen2_forward(self, fake_64, tem, eps, generator=None):
+        """CA2 -> G2; returns ``(fake_256, mu2, sigma2)``."""
+        c_hat2, mu2, sigma2 = self.con_augment_2(tem, eps=eps, generator=generator)
+        return self.gen_2(fake_64, c_hat2), mu2, sigma2
 
     @torch.no_grad()
     def sample(self, batch: dict, generator=None, noise=None):
@@ -140,10 +255,77 @@ class Stage2System(nn.Module):
         noise = noise or {}
         if "tem" in batch:
             tem = batch["tem"].float()
-            fake_64 = self._frozen_64_from_tem(tem, generator, noise)
         else:
-            tem, fake_64 = self._frozen_64(
-                batch["input_ids"], batch["attention_mask"], generator, noise
-            )
-        c_hat2, _, _ = self.con_augment_2(tem, eps=noise.get("ca2_eps"), generator=generator)
-        return self.gen_2(fake_64, c_hat2)
+            tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
+        fake_64 = self._frozen_64_from_tem(tem, generator, noise)
+        return self._gen2_forward(fake_64, tem, noise.get("ca2_eps"), generator)[0]
+
+    def train_step(self, batch: dict, generator=None, noise=None):
+        """One optimizer step, in place. ``batch``: ``image``
+        ``(B, 256, 256, 3)`` in [-1, 1] (f32) or uint8 (normalised on the
+        device as ``x * 2/255 - 1``), and either ``input_ids`` and
+        ``attention_mask`` ``(B, T)`` int or precomputed embeddings ``tem``
+        ``(B, tem_size)``. Returns ``{loss_critic, loss_gen, gp, kl}`` as
+        0-d tensors: the last critic iteration's loss and penalty, the
+        generator loss and its KL term."""
+        c = self.config
+        if c.remat:
+            raise NotImplementedError("Stage2Config.remat is not ported to PyTorch")
+        noise = noise or {}
+        real = batch["image"]
+        if real.dtype == torch.uint8:
+            real = real.float() * (2.0 / 255.0) - 1.0
+        bsz, dev = real.shape[0], real.device
+
+        def draw(name, i, fn, shape, **kw):
+            if name in noise:
+                return noise[name][i]
+            return fn(shape, generator=generator, device=dev, **kw)
+
+        perm = noise.get("perm")
+        if perm is None:
+            perm = torch.randperm(bsz, generator=generator, device=dev)
+        with torch.no_grad():
+            if "tem" in batch:
+                tem = batch["tem"].float()
+            else:
+                tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
+            tem_mis = tem[perm]
+
+        for attr in TRAINED.values():
+            getattr(self, attr).train()
+        try:
+            for i in range(c.n_critic):
+                frozen = {"ca1_eps": draw("ca1_eps", i, torch.randn, (bsz, c.c_dim)),
+                          "z": draw("z", i, torch.randn, (bsz, c.z_dim))}
+                ca2_eps = draw("ca2_eps", i, torch.randn, (bsz, c.c_dim))
+                gp_eps = draw("gp_eps", i, torch.rand, (bsz, 1, 1, 1), dtype=real.dtype)
+                with torch.no_grad():
+                    fake_64 = self._frozen_64_from_tem(tem, None, frozen)
+                    fake_256 = self._gen2_forward(fake_64, tem, ca2_eps)[0]
+                loss_critic, gp = critic_loss(
+                    self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp
+                )
+                self.optimizers["critic"].zero_grad(set_to_none=True)
+                loss_critic.backward()
+                self._update("critic")
+
+            # generator side, with the last iteration's noise and 64 px images
+            fake_256, mu2, sigma2 = self._gen2_forward(fake_64, tem, ca2_eps)
+            s_fake = self.critic_2(fake_256, tem).reshape(-1).float()
+            kl = losses.kl_term(mu2, sigma2, c.kl_mode)
+            loss_gen = losses.wgan_generator_loss(s_fake) + kl
+            params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]
+            for p, g in zip(params, torch.autograd.grad(loss_gen, params)):
+                p.grad = g
+            for name in GEN_SIDE:
+                self._update(name)
+        finally:
+            self.eval()
+        self.step += 1
+        return {
+            "loss_critic": loss_critic.detach(),
+            "loss_gen": loss_gen.detach(),
+            "gp": gp.detach(),
+            "kl": kl.detach(),
+        }

@@ -1,1 +1,1 @@
-"""Utilities: a standard-library PNG writer and the entry points' device rule."""
+"""Utilities: a standard-library PNG writer and reader, the entry points' device rule, metrics, seeded generators."""

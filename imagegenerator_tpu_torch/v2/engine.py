@@ -34,22 +34,14 @@ import torch
 from imagegenerator_tpu_torch.ops.grad_utils import clamp_with_grad, replace_grad
 from imagegenerator_tpu_torch.train import schedules
 from imagegenerator_tpu_torch.utils.device import entry_device
+from imagegenerator_tpu_torch.utils.rng import mixed_generator
 from imagegenerator_tpu_torch.v2.clip import CLIP, CLIPConfig, normalize_image
 from imagegenerator_tpu_torch.v2.cutouts import MakeCutouts
 from imagegenerator_tpu_torch.v2.prompts import spherical_dist
 from imagegenerator_tpu_torch.v2.vqgan import VQGANConfig, VQModel
 
-
-def iteration_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of iteration ``step`` of the run seeded ``seed``:
-    seeded with a 64-bit mix of the two (splitmix64's finalizer), every
-    bit of which depends on both, since a CPU generator reads only the
-    low 32 bits of its seed."""
-    mask = (1 << 64) - 1
-    x = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xD1B54A32D192ED03 + 0x2545F4914F6CDD1D) & mask
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
-    return torch.Generator(device=device).manual_seed((x ^ (x >> 31)) & ((1 << 63) - 1))
+# the generator of iteration ``step`` of the run seeded ``seed``
+iteration_generator = mixed_generator
 
 
 class LatentState:

@@ -145,11 +145,10 @@ def test_convert_round_trip_is_exact(stage):
         back = convert.to_numpy(convert.stage1_from_numpy(flat, ts1.Stage1Config.tiny()))
     else:
         back = convert.stage2_to_numpy(convert.stage2_from_numpy(flat, ts2.Stage2Config.tiny()))
-    # stage 1 carries its critic, step count and (fresh) optimizer state;
-    # stage 2's critic is not ported yet
+    # both stages carry their critic, step count and (fresh) optimizer state
     extra = {k for k in back if k == "step" or k.startswith("opt_state/")}
-    critic = {k for k in flat if "critic" in k} if stage == 2 else set()
-    assert set(back) - extra == set(flat) - critic
+    assert extra and any("critic" in k for k in flat)
+    assert set(back) - extra == set(flat)
     for k in set(back) - extra:
         assert back[k].dtype == flat[k].dtype and np.array_equal(back[k], flat[k]), k
 

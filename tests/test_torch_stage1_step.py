@@ -107,11 +107,14 @@ def _adam(opt_state):
     return next(s for s in opt_state if hasattr(s, "mu"))
 
 
-def jax_flat(state) -> dict:
-    """A ``Stage1State`` as the flat dict of ``convert``, optimizer state
-    and step included."""
+STAGE1_FIELDS = ("params", "batch_stats")
+
+
+def jax_flat(state, fields=STAGE1_FIELDS) -> dict:
+    """A ``Stage1State`` (or, with its ``fields``, a ``Stage2State``) as
+    the flat dict of ``convert``, optimizer state and step included."""
     flat = {}
-    for field in ("params", "batch_stats"):
+    for field in fields:
         for path, a in traverse_util.flatten_dict(getattr(state, field)).items():
             flat[field + "/" + "/".join(path)] = np.asarray(a)
     for m, st in state.opt_state.items():
@@ -124,7 +127,7 @@ def jax_flat(state) -> dict:
     return flat
 
 
-def jax_state_from_flat(template, flat):
+def jax_state_from_flat(template, flat, fields=STAGE1_FIELDS):
     """The inverse of ``jax_flat`` on the structure of ``template``."""
 
     def tree(prefix):
@@ -143,7 +146,7 @@ def jax_state_from_flat(template, flat):
                 s = s._replace(count=count)
             parts.append(s)
         opt_state[m] = type(st)(parts)
-    return template.replace(params=tree("params/"), batch_stats=tree("batch_stats/"),
+    return template.replace(**{field: tree(field + "/") for field in fields},
                             opt_state=opt_state, step=jnp.asarray(flat["step"], jnp.int32))
 
 
@@ -161,13 +164,14 @@ def _noise_grad(key, shape, cfg):
     ):
         mask[...] = True
     elif key == "params/critic/head/Conv2d_0/kernel":  # HWIO: text channels last
-        mask[:, :, cfg.disc_channels[-1]:, :] = True
+        channels = cfg.disc_channels if hasattr(cfg, "disc_channels") else cfg.d2_channels
+        mask[:, :, channels[-1]:, :] = True
     return mask
 
 
-def assert_state_close(port, jstate, cfg, what):
+def assert_state_close(port, jstate, cfg, what, fields=STAGE1_FIELDS):
     got = convert.to_numpy(port)
-    want = jax_flat(jstate)
+    want = jax_flat(jstate, fields)
     for key, w in want.items():
         g = got[key]
         assert g.shape == w.shape, (what, key)
