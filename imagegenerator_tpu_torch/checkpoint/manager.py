@@ -20,6 +20,10 @@ Layout under ``directory``::
 * ``restore_latest()`` reads the per-epoch file the marker names and
   returns ``(flat, saved_epoch + 1)``, or ``(None, 0)`` with no marker. A
   checkpoint that the marker names and that cannot be read raises.
+* under data parallelism (``parallel/dp.py``) rank 0 alone writes and
+  every rank then waits at a barrier, so no rank reads or resumes past a
+  checkpoint that is not on disk yet; the other ranks' ``flat`` is not
+  read. Every rank restores.
 * ``save_with_aux(epoch, flat, aux)`` stores ``{"state": flat, "aux":
   aux}``: the keys get the prefixes ``state/`` and ``aux/`` (the
   trainer's EMA tree lies under ``aux/ema/``). ``restore_latest`` on such
@@ -32,6 +36,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from imagegenerator_tpu_torch.parallel import dp
 
 _FILE = "state.npz"
 _PREFIXES = ("state/", "aux/")
@@ -69,10 +75,13 @@ class CheckpointManager:
         os.replace(tmp, path)
 
     def save(self, epoch: int, flat: dict) -> None:
-        """Dual write (per-epoch file, rolling latest), then the marker."""
-        for directory in (self._epoch_dir(epoch), self._latest_dir()):
-            self._publish(os.path.join(directory, _FILE), lambda f: np.savez(f, **flat))
-        self._publish(self._marker(), lambda f: f.write(str(epoch).encode()))
+        """Dual write (per-epoch file, rolling latest), then the marker;
+        on rank 0 only, then a barrier of all ranks."""
+        if dp.is_main():
+            for directory in (self._epoch_dir(epoch), self._latest_dir()):
+                self._publish(os.path.join(directory, _FILE), lambda f: np.savez(f, **flat))
+            self._publish(self._marker(), lambda f: f.write(str(epoch).encode()))
+        dp.barrier()
 
     def save_with_aux(self, epoch: int, flat: dict, aux: dict) -> None:
         """``save`` with a side dict (the trainer's ``{"ema/<key>": ...}``)."""

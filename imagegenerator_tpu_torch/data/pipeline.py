@@ -12,7 +12,11 @@ of tensors on the device — counterpart of
 
 The epoch's order is ``np.random.default_rng((seed, epoch)).permutation``,
 as in the JAX package: the same ``(seed, epoch)`` serves the same
-captions in the same order.
+captions in the same order. Under data parallelism every rank shuffles
+its own slice of the manifest with the same generator, and ``batch_size``
+is per rank; the ranks must take as many steps as each other, or a
+collective would wait for ever, so each epoch starts by checking that
+they do (``parallel/dp.py::check_same_on_all_ranks``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from imagegenerator_tpu_torch.parallel import dp
 from imagegenerator_tpu_torch.utils.device import entry_device
 
 
@@ -114,6 +119,7 @@ class DataLoader:
     def __iter__(self):
         """Batches on the device, ``device_prefetch`` ahead."""
         self.epoch += 1
+        dp.check_same_on_all_ranks(len(self), "batches per epoch")
         pending: deque = deque()
         for host_batch in self._host_batches():
             pending.append(self._to_device(host_batch))

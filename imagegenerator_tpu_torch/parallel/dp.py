@@ -1,0 +1,176 @@
+"""Data parallelism over ``torch.distributed`` — counterpart of
+``imagegenerator_tpu/parallel/mesh.py``, written the torch way: one
+process per card (``torchrun --nproc_per_node N``), each holding a whole
+replica of the model and its own share of every batch.
+
+Where the JAX package runs its step under ``shard_map`` over a ``data``
+mesh and averages with ``lax.pmean``, the port's step takes a ``reduce``
+callable and calls it at the same places (``all_reduce_mean``): the
+critic's gradients before each critic update, the generator side's
+gradients before its update, and the four metrics. The collectives are
+explicit rather than ``DistributedDataParallel``'s hooks, which fit
+neither the gradient penalty's double backward nor the several forwards
+of one step. Nothing else is reduced: BatchNorm statistics stay per
+replica, as in the JAX step (no SyncBatchNorm), and rank 0's are the ones
+a checkpoint keeps.
+
+Without an initialised process group every function here is the single
+process's: ``world() == 1``, ``rank() == 0``, ``all_reduce_mean`` and
+``barrier`` do nothing and never touch ``torch.distributed``.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from imagegenerator_tpu_torch.utils.device import entry_device
+
+ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_main() -> bool:
+    return rank() == 0
+
+
+def backend_for(device_type: str, local_world_size: int, device_count: int) -> str:
+    """The collective backend for ranks on ``device_type``: ``gloo`` on
+    the CPU; on CUDA ``nccl`` when each of the host's ``local_world_size``
+    ranks has a card of its own (``device_count`` cards to share out),
+    else ``gloo``, since NCCL refuses two ranks on one device."""
+    if device_type != "cuda":
+        return "gloo"
+    return "nccl" if local_world_size <= device_count else "gloo"
+
+
+def init_from_env(device=None) -> torch.device:
+    """Join the process group that ``torchrun`` describes in the
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) and return this
+    rank's device: ``cuda:LOCAL_RANK`` for None or ``"cuda"`` (one card
+    per rank; a missing card raises), else ``device`` as named, which the
+    host's ranks are taken to share (``--device cuda:0`` puts them all on
+    one card). Prints the rank, the device and the backend chosen."""
+    missing = [k for k in ENV if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"data parallelism needs torchrun's environment; missing {missing}")
+    r, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_rank, local_world = int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    own_card = device is None or str(device) == "cuda"
+    dev = entry_device(f"cuda:{local_rank}" if own_card else device)
+    count = 0
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {r}: {dev} asked for, {torch.cuda.device_count()} card(s) here")
+        torch.cuda.set_device(dev)
+        count = torch.cuda.device_count() if own_card else 1
+    backend = backend_for(dev.type, local_world, count)
+    why = {"gloo": "the CPU" if dev.type != "cuda" else f"{local_world} ranks share {count} card(s)",
+           "nccl": "one card per rank"}[backend]
+    print(f"[dp] rank {r} of {n} (local {local_rank} of {local_world}) on {dev}: backend {backend} ({why})",
+          flush=True)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        world_size=n, rank=r,
+    )
+    return dev
+
+
+def _buckets(tensors):
+    """The tensors grouped by (device, dtype), in order."""
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    return groups.values()
+
+
+def _flat(group):
+    return torch.cat([t.reshape(-1) for t in group])
+
+
+def _unflatten_into(flat, group) -> None:
+    at = 0
+    for t in group:
+        t.copy_(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+
+
+def all_reduce_mean(tensors) -> None:
+    """Average ``tensors`` over the ranks, in place: one flat bucket per
+    (device, dtype), one ``all_reduce`` per bucket, then a division by the
+    world size. Every rank ends with the same bits. At world size 1 it
+    returns at once."""
+    n = world()
+    if n == 1:
+        return
+    for group in _buckets(tensors):
+        flat = _flat(group)
+        dist.all_reduce(flat)
+        flat.div_(n)
+        _unflatten_into(flat, group)
+
+
+def broadcast_state(modules, optimizers=(), src: int = 0) -> None:
+    """Copy rank ``src``'s parameters and buffers of ``modules``, and the
+    state tensors of ``optimizers`` (Adam's moments and counts), to every
+    rank, one bucket per (device, dtype). Optimizer state that is not made
+    yet (before the first step) is left alone; the ranks hold the same
+    structure, since they take the same steps. At world size 1 it
+    returns at once."""
+    if world() == 1:
+        return
+    tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
+    for opt in optimizers:
+        for state in opt.state.values():
+            tensors.extend(v for v in state.values() if torch.is_tensor(v))
+    with torch.no_grad():
+        for group in _buckets(tensors):
+            flat = _flat(group)
+            if flat.device.type == "cpu" and dist.get_backend() == "nccl":
+                # Adam's step counts live on the CPU, which NCCL cannot reach:
+                # they travel through this rank's card
+                on_card = flat.to(torch.cuda.current_device())
+                dist.broadcast(on_card, src)
+                flat = on_card.cpu()
+            else:
+                dist.broadcast(flat, src)
+            _unflatten_into(flat, group)
+
+
+def barrier() -> None:
+    if world() > 1:
+        dist.barrier()
+
+
+def check_same_on_all_ranks(value: int, what: str) -> None:
+    """Raise on every rank unless each holds the same ``value`` (a step
+    count: a rank that took one step more than another would hang in a
+    collective)."""
+    if world() == 1:
+        return
+    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([value, -value], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    high, low = int(t[0]), -int(t[1])
+    if high != low:
+        raise RuntimeError(f"rank {rank()}: {what} differ across ranks ({low} to {high}, this rank {value})")
+
+
+def local_batch_size(global_batch: int, n: int | None = None) -> int:
+    """A global batch's share per rank; it must divide evenly."""
+    n = world() if n is None else n
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} ranks")
+    return global_batch // n

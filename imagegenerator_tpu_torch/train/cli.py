@@ -13,10 +13,26 @@ Checkpoints go to ``<checkpoint_dir>/Stage{N}/`` (``checkpoint/manager.py``);
 running the same command again resumes from the latest one and prints
 ``Loaded checkpoint at epoch N``.
 
+Data parallelism, one process per card, through ``torchrun``::
+
+    torchrun --standalone --nproc_per_node 4 -m imagegenerator_tpu_torch.train.cli \
+        --multihost --stage 1 ...
+
+``--multihost`` joins the process group torchrun describes
+(``parallel/dp.py``); each rank trains on ``cuda:LOCAL_RANK`` over NCCL,
+reads its own ``1 / world`` slice of the manifest and takes
+``--batch_size`` samples a step (the batch is per rank, as in the JAX CLI,
+where it is per data-parallel shard); gradients and metrics are averaged
+over the ranks. ``--device cuda:0`` puts every rank on one card (over
+gloo), ``--device cpu`` on the CPU (gloo). Rank 0 writes checkpoints and
+metrics; every rank resumes.
+
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the training
+loop, one file per rank (``utils/profiling.py``).
+
 Where the JAX CLI differs: ``--device`` (default ``cuda``, which must be
-available); no ``--rng_impl`` (an XLA knob); ``--tp > 1``, ``--multihost``
-and ``--profile_dir`` exit, their paths are not ported yet. One process
-drives one card.
+available); no ``--rng_impl`` (an XLA knob); ``--tp > 1`` exits, tensor
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -95,8 +111,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="local HF tokenizer dir/name; default: the "
                         "dependency-free HashTokenizer")
     p.add_argument("--multihost", action="store_true",
-                   help="several processes over torch.distributed: not ported yet "
-                        "(exits)")
+                   help="data parallelism over torch.distributed, one process per "
+                        "card, as torchrun starts them (its RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, ... environment); --batch_size is per rank")
 
     def _decay(v):
         d = float(v)
@@ -110,7 +127,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "checkpoints as a side dict and sampled with "
                         "train.sample --ema (train/ema.py)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="capture a profiler trace of the run: not ported yet (exits)")
+                   help="write a torch.profiler trace of the training loop here, "
+                        "one file per rank")
     p.add_argument("--image_dtype", choices=["uint8", "float32"], default="uint8",
                    help="loader -> device image dtype. uint8 (default): the loader "
                         "ships resampled bytes and the train step normalises to "
@@ -126,20 +144,24 @@ def get_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.tp > 1:
         raise SystemExit("--tp > 1: tensor parallelism is not ported yet "
-                         "(ROADMAP.md queue 1, 'DP and TP through torch.distributed')")
-    if args.multihost:
-        raise SystemExit("--multihost: data parallelism over torch.distributed is not "
-                         "ported yet (ROADMAP.md queue 1, 'DP and TP through "
-                         "torch.distributed')")
-    if args.profile_dir:
-        raise SystemExit("--profile_dir: the profiler hook is not ported yet "
-                         "(ROADMAP.md queue 1, 'utils/profiling.py'); chip_smoke.py "
-                         "prints a torch.profiler table of both train steps")
+                         "(ROADMAP.md queue 1, 'remat and TP')")
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
     _refuse_unported(args)
+    try:
+        _run(args)
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _run(args):
+    import contextlib
 
     import torch
 
@@ -150,13 +172,16 @@ def main(argv=None):
     from imagegenerator_tpu_torch.data.storage import open_store
     from imagegenerator_tpu_torch.data.tokenizer import make_tokenizer
     from imagegenerator_tpu_torch.models import bert
+    from imagegenerator_tpu_torch.parallel import dp
     from imagegenerator_tpu_torch.train import stage1 as s1
     from imagegenerator_tpu_torch.train import stage2 as s2
     from imagegenerator_tpu_torch.train.trainer import Stage1Trainer, Stage2Trainer, TrainerOptions
     from imagegenerator_tpu_torch.utils.device import entry_device
+    from imagegenerator_tpu_torch.utils.profiling import trace
 
     try:
-        device = entry_device(args.device)
+        # with --multihost the default "cuda" is this rank's cuda:LOCAL_RANK
+        device = dp.init_from_env(args.device) if args.multihost else entry_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}") from e
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -209,9 +234,11 @@ def main(argv=None):
     else:
         cfg = s2.Stage2Config.tiny(**tiny_kw) if args.tiny else s2.Stage2Config(lr=args.lr, **common)
 
-    # the dataset's image size follows the config's resolution
+    # the dataset's image size follows the config's resolution; each rank
+    # reads its own slice of the manifest
     dataset = CocoCaptions(open_store(args.data), args.root, args.ann_file,
-                           image_size=cfg.resolution, image_dtype=args.image_dtype)
+                           image_size=cfg.resolution, host_index=dp.rank(),
+                           host_count=dp.world(), image_dtype=args.image_dtype)
     tokenizer = make_tokenizer(args.tokenizer, args.seq_len, cfg)
     loader = DataLoader(dataset, tokenizer, batch_size=args.batch_size, seed=args.seed,
                         device=device)
@@ -223,6 +250,7 @@ def main(argv=None):
         ema_decay=args.ema,
     )
     init = torch.Generator(device=device).manual_seed(args.seed)
+    prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
 
     if args.stage == 1:
         system = s1.Stage1System(cfg, device=device, generator=init)
@@ -231,7 +259,8 @@ def main(argv=None):
         if bert_state is not None and start_epoch == 0:
             # fresh runs only: a resumed checkpoint carries the fine-tuned weights
             system.encoder.load_state_dict(bert_state)
-        trainer.fit(start_epoch)
+        with prof:
+            trainer.fit(start_epoch)
         return
 
     system = s2.Stage2System(cfg, device=device, generator=init)
@@ -247,7 +276,8 @@ def main(argv=None):
     if bert_state is not None and start_epoch == 0 and stage1_system is None:
         # no stage-1 checkpoint to inherit from: freeze the pretrained encoder
         system.encoder.load_state_dict(bert_state)
-    trainer.fit(start_epoch)
+    with prof:
+        trainer.fit(start_epoch)
 
 
 if __name__ == "__main__":

@@ -38,10 +38,15 @@ given draws: ``perm (B,)``, ``ca_eps``, ``z``, ``gp_eps`` (each indexed by
 iteration) and ``attn_seeds`` (int32 seeds, one per fused attention layer
 and text forward, in order).
 
+Data parallelism: ``reduce`` (``parallel/dp.py::all_reduce_mean``)
+averages over the ranks where the JAX step calls ``pmean``: the critic's
+gradients before each critic update, the generator side's (encoder and
+projection included) before its update, and the four metrics. BatchNorm
+statistics stay per rank. Tensor parallelism is not in this port yet.
+
 ``remat`` and ``unroll_critic`` are XLA knobs. ``unroll_critic`` has no
 effect in eager PyTorch; ``remat=True`` is not ported and ``train_step``
-raises ``NotImplementedError``. Data parallelism and tensor parallelism
-are not in this port yet.
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -226,25 +231,28 @@ class Stage1System(nn.Module):
             )
         return self.generator(torch.cat([c_hat, z.float()], dim=1))
 
-    def _critic_update(self, real, fake, tem, tem_mis, gp_eps):
+    def _critic_update(self, real, fake, tem, tem_mis, gp_eps, reduce):
         """One critic iteration's loss and Adam update; returns
         ``(loss, gp)`` detached."""
         loss, gp = critic_loss(self.critic, real, fake, tem, tem_mis, gp_eps, self.config.lambda_gp)
         self.optimizers["critic"].zero_grad(set_to_none=True)
         loss.backward()
+        reduce([p.grad for p in self.critic.parameters()])
         self._update("critic")
         return loss.detach(), gp.detach()
 
-    def train_step(self, batch: dict, generator=None, noise=None, host_generator=None):
+    def train_step(self, batch: dict, generator=None, noise=None, host_generator=None, reduce=None):
         """One optimizer step, in place. ``batch``: ``input_ids``,
         ``attention_mask`` ``(B, T)`` int and ``image`` ``(B, 64, 64, 3)``
         in [-1, 1] (f32) or uint8 (normalised on the device as
         ``x * 2/255 - 1``). Returns ``{loss_critic, loss_gen, gp, kl}`` as
         0-d tensors: the last critic iteration's loss and penalty, the
-        generator loss and its KL term."""
+        generator loss and its KL term. ``reduce(tensors)``, where given,
+        averages a list of tensors over the data-parallel ranks in place."""
         c = self.config
         if c.remat:
             raise NotImplementedError("Stage1Config.remat is not ported to PyTorch")
+        reduce = reduce or (lambda tensors: None)
         noise = noise or {}
         tokens, mask, real = batch["input_ids"], batch["attention_mask"], batch["image"]
         if real.dtype == torch.uint8:
@@ -293,7 +301,7 @@ class Stage1System(nn.Module):
                     (bsz, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
                 with torch.no_grad():
                     fake = self._gen_forward(tem, ca_eps, z)[0]
-                loss_critic, gp = self._critic_update(real, fake, tem, tem_mis, gp_eps)
+                loss_critic, gp = self._critic_update(real, fake, tem, tem_mis, gp_eps, reduce)
 
             # generator side, with the last iteration's CA and z noise
             tem = tems[0]
@@ -302,16 +310,20 @@ class Stage1System(nn.Module):
             kl = losses.kl_term(mu, sigma, c.kl_mode)
             loss_gen = losses.wgan_generator_loss(s_fake) + kl
             params = [p for name in GEN_SIDE for p in getattr(self, name).parameters()]
-            for p, g in zip(params, torch.autograd.grad(loss_gen, params)):
+            grads = torch.autograd.grad(loss_gen, params)
+            reduce(list(grads))
+            for p, g in zip(params, grads):
                 p.grad = g
             for name in GEN_SIDE:
                 self._update(name)
         finally:
             self.eval()
         self.step += 1
-        return {
+        metrics = {
             "loss_critic": loss_critic,
-            "loss_gen": loss_gen.detach(),
+            "loss_gen": loss_gen.detach().clone(),
             "gp": gp,
-            "kl": kl.detach(),
+            "kl": kl.detach().clone(),
         }
+        reduce(list(metrics.values()))
+        return metrics

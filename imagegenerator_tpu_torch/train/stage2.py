@@ -35,9 +35,14 @@ permutation, then per iteration (ca1_eps, z, ca2_eps, gp_eps). A
 ``noise`` dict replays given draws: ``perm (B,)`` and ``ca1_eps``, ``z``,
 ``ca2_eps``, ``gp_eps``, each indexed by iteration.
 
+Data parallelism: ``reduce`` (``parallel/dp.py::all_reduce_mean``)
+averages over the ranks where the JAX step calls ``pmean``: the critic's
+gradients before each critic update, CA2's and G2's before theirs, and
+the four metrics. BatchNorm statistics stay per rank.
+
 ``remat`` and ``unroll_critic`` are XLA knobs. ``unroll_critic`` has no
 effect in eager PyTorch; ``remat=True`` is not ported and ``train_step``
-raises ``NotImplementedError``. Data parallelism is not in this port yet.
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -260,17 +265,19 @@ class Stage2System(nn.Module):
         fake_64 = self._frozen_64_from_tem(tem, generator, noise)
         return self._gen2_forward(fake_64, tem, noise.get("ca2_eps"), generator)[0]
 
-    def train_step(self, batch: dict, generator=None, noise=None):
+    def train_step(self, batch: dict, generator=None, noise=None, reduce=None):
         """One optimizer step, in place. ``batch``: ``image``
         ``(B, 256, 256, 3)`` in [-1, 1] (f32) or uint8 (normalised on the
         device as ``x * 2/255 - 1``), and either ``input_ids`` and
         ``attention_mask`` ``(B, T)`` int or precomputed embeddings ``tem``
         ``(B, tem_size)``. Returns ``{loss_critic, loss_gen, gp, kl}`` as
         0-d tensors: the last critic iteration's loss and penalty, the
-        generator loss and its KL term."""
+        generator loss and its KL term. ``reduce(tensors)``, where given,
+        averages a list of tensors over the data-parallel ranks in place."""
         c = self.config
         if c.remat:
             raise NotImplementedError("Stage2Config.remat is not ported to PyTorch")
+        reduce = reduce or (lambda tensors: None)
         noise = noise or {}
         real = batch["image"]
         if real.dtype == torch.uint8:
@@ -308,6 +315,7 @@ class Stage2System(nn.Module):
                 )
                 self.optimizers["critic"].zero_grad(set_to_none=True)
                 loss_critic.backward()
+                reduce([p.grad for p in self.critic_2.parameters()])
                 self._update("critic")
 
             # generator side, with the last iteration's noise and 64 px images
@@ -316,16 +324,20 @@ class Stage2System(nn.Module):
             kl = losses.kl_term(mu2, sigma2, c.kl_mode)
             loss_gen = losses.wgan_generator_loss(s_fake) + kl
             params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]
-            for p, g in zip(params, torch.autograd.grad(loss_gen, params)):
+            grads = torch.autograd.grad(loss_gen, params)
+            reduce(list(grads))
+            for p, g in zip(params, grads):
                 p.grad = g
             for name in GEN_SIDE:
                 self._update(name)
         finally:
             self.eval()
         self.step += 1
-        return {
-            "loss_critic": loss_critic.detach(),
-            "loss_gen": loss_gen.detach(),
-            "gp": gp.detach(),
-            "kl": kl.detach(),
+        metrics = {
+            "loss_critic": loss_critic.detach().clone(),
+            "loss_gen": loss_gen.detach().clone(),
+            "gp": gp.detach().clone(),
+            "kl": kl.detach().clone(),
         }
+        reduce(list(metrics.values()))
+        return metrics

@@ -6,7 +6,16 @@ The state lives on the system (modules, optimizers, step count), so
 ``init_state`` restores into it and returns the epoch to start from, and
 ``fit`` trains it in place. All of a step's noise comes from a generator
 seeded from ``(seed, global step)`` (``utils/rng.py``), so a resumed run draws what an
-uninterrupted one would have drawn. One card; no mesh.
+uninterrupted one would have drawn.
+
+Under data parallelism (``parallel/dp.py``, one process per card) every
+rank builds or restores the same state and then takes rank 0's
+(``broadcast_state``); every rank seeds each step from the same ``(seed,
+global step)``, as the JAX step hands its one replicated key to every
+shard, so the replicas draw the same permutation over their own local
+batch and the same noise and dropout seeds; the steps average gradients
+and metrics over the ranks. Each rank keeps its EMA (they agree, since the
+parameters do); rank 0 writes checkpoints, metrics and images.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 
 from imagegenerator_tpu_torch import convert
 from imagegenerator_tpu_torch.checkpoint import CheckpointManager
+from imagegenerator_tpu_torch.parallel import dp
 from imagegenerator_tpu_torch.train import ema as ema_lib
 from imagegenerator_tpu_torch.utils.metrics import MetricsWriter
 from imagegenerator_tpu_torch.utils.rng import mixed_generator
@@ -78,6 +88,11 @@ class _Trainer:
         print(f"Loaded checkpoint at epoch {start_epoch - 1}")
         return start_epoch
 
+    def _sync_ranks(self) -> None:
+        """Every rank takes rank 0's parameters, statistics and optimizer
+        state (a no-op in one process)."""
+        dp.broadcast_state([self.system], self.system.optimizers.values())
+
     def _seed_ema(self) -> None:
         # a fresh run, or a checkpoint of a run without EMA: the average
         # starts from the parameters as they are
@@ -85,8 +100,9 @@ class _Trainer:
             self.ema = ema_lib.init_ema(self.system, self._ema_modules)
 
     def _save(self, epoch: int) -> None:
-        flat = convert.to_numpy(self.system)
-        if self.ema is None:
+        # rank 0 writes; the others pass an empty state to the manager's barrier
+        flat = convert.to_numpy(self.system) if dp.is_main() else {}
+        if self.ema is None or not dp.is_main():
             self.ckpt.save(epoch, flat)
         else:
             ema = ema_lib.to_numpy(self.ema, self.system)
@@ -124,6 +140,7 @@ class Stage1Trainer(_Trainer):
     def init_state(self) -> int:
         """Resume where a checkpoint exists; returns the start epoch."""
         start_epoch = self._restore()
+        self._sync_ranks()
         self._seed_ema()
         return start_epoch
 
@@ -133,6 +150,7 @@ class Stage1Trainer(_Trainer):
             batch,
             generator=mixed_generator(self.opt.seed, gstep, self.device),
             host_generator=mixed_generator(self.opt.seed, gstep, "cpu"),
+            reduce=dp.all_reduce_mean,
         )
 
 
@@ -146,17 +164,19 @@ class Stage2Trainer(_Trainer):
         if stage1_system is not None:
             self.system.load_stage1(stage1_system)
         start_epoch = self._restore()
+        self._sync_ranks()
         self._seed_ema()
         return start_epoch
 
     def _train_step(self, batch, gstep):
         return self.system.train_step(
-            batch, generator=mixed_generator(self.opt.seed, gstep, self.device)
+            batch, generator=mixed_generator(self.opt.seed, gstep, self.device),
+            reduce=dp.all_reduce_mean,
         )
 
     def _after_step(self, batch, gstep):
         every = self.opt.sample_every_steps
-        if not (every and gstep % every == 0 and gstep > 0):
+        if not (every and gstep % every == 0 and gstep > 0) or not dp.is_main():
             return
         gen = torch.Generator(device=self.device).manual_seed(SAMPLE_SEED)
         fake = self.system.sample(batch, generator=gen)

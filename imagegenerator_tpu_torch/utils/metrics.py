@@ -4,12 +4,15 @@ TensorBoard is optional).
 
 A train step returns its metrics as 0-d tensors on the device; the
 trainer reads them (one host sync) only at the configured log interval
-and hands this writer floats.
+and hands this writer floats. Under data parallelism only rank 0 writes
+(``parallel/dp.py``): the metrics are averaged over the ranks already.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from imagegenerator_tpu_torch.parallel import dp
 
 
 def image_grid(images: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
@@ -62,10 +65,13 @@ def _open_tb_writer(logdir: str):
 class MetricsWriter:
     def __init__(self, logdir: str | None = None, use_tensorboard: bool = True):
         self._tb = None
-        if logdir and use_tensorboard:
+        self._main = dp.is_main()
+        if logdir and use_tensorboard and self._main:
             self._tb = _open_tb_writer(logdir)
 
     def scalars(self, step: int, values: dict) -> None:
+        if not self._main:
+            return
         parts = ", ".join(f"{k}: {float(v):.4f}" for k, v in values.items())
         print(f"step {step}: {parts}", flush=True)
         if self._tb is not None:

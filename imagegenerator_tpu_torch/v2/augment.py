@@ -11,9 +11,10 @@ Every function is batched over leading axes where the JAX package maps a
 per-image function with ``vmap``. The random draws are made apart from
 their use: ``draw_color`` and ``draw_geometry`` draw from a
 ``torch.Generator`` what ``random_color_augment`` and ``random_geometry``
-then apply, so that a caller can replay given draws. ``random_augment``
-and ``bilinear_sample``, which serve only the lanczos cutout path, are
-not ported.
+then apply, so that a caller can replay given draws; ``draw_augment`` and
+``random_augment`` are the whole stack in one (the lanczos cutout path).
+``bilinear_sample`` over a ``homography_grid`` is the JAX package's
+one-pass warp; the port warps in two passes (``warp2pass.py``) only.
 """
 
 from __future__ import annotations
@@ -24,6 +25,34 @@ import torch
 import torch.nn.functional as F
 
 from imagegenerator_tpu_torch.ops.grad_utils import clip
+from imagegenerator_tpu_torch.v2.warp2pass import warp_homography_2pass
+
+
+# ------------------------------------------------------------- sampling
+def bilinear_sample(img, coords):
+    """Border-clamped bilinear sampling: img ``(H, W, C)`` with coords
+    ``(H_out, W_out, 2)`` as (y, x) source coordinates, or a batch of
+    both, ``(N, H, W, C)`` with ``(N, H_out, W_out, 2)``. The four taps
+    are one gather over the flattened ``(H * W, C)`` image."""
+    batched = img.ndim == 4
+    if not batched:
+        img, coords = img[None], coords[None]
+    N, H, W, C = img.shape
+    y = coords[..., 0].clamp(0.0, H - 1.0)
+    x = coords[..., 1].clamp(0.0, W - 1.0)
+    y0, x0 = y.floor(), x.floor()
+    wy, wx = (y - y0)[..., None], (x - x0)[..., None]
+    y0, x0 = y0.long(), x0.long()
+    y1, x1 = (y0 + 1).clamp_max(H - 1), (x0 + 1).clamp_max(W - 1)
+    flat = img.reshape(N, H * W, C)
+
+    def tap(yy, xx):
+        idx = (yy * W + xx).reshape(N, -1, 1).expand(-1, -1, C)
+        return torch.gather(flat, 1, idx).reshape(*yy.shape, C)
+
+    out = (tap(y0, x0) * (1 - wy) * (1 - wx) + tap(y0, x1) * (1 - wy) * wx
+           + tap(y1, x0) * wy * (1 - wx) + tap(y1, x1) * wy * wx)
+    return out if batched else out[0]
 
 
 # ---------------------------------------------------------------- color
@@ -137,6 +166,17 @@ def perspective_homography(H, W, src_corners):
     ], dim=-2)
 
 
+def homography_grid(H, W, Hm):
+    """(y, x) source-coordinate grid ``(..., H, W, 2)`` of the inverse-map
+    homographies ``Hm (..., 3, 3)``."""
+    yy = torch.arange(H, dtype=torch.float32, device=Hm.device)
+    xx = torch.arange(W, dtype=torch.float32, device=Hm.device)
+    grid = torch.stack(torch.meshgrid(yy, xx, indexing="ij"), dim=-1)
+    pts = torch.cat([grid, torch.ones_like(grid[..., :1])], dim=-1)  # (H, W, 3) as (y, x, 1)
+    warped = torch.einsum("hwj,...ij->...hwi", pts, Hm.float())
+    return warped[..., :2] / warped[..., 2:3].clamp_min(1e-8)
+
+
 # ------------------------------------------------------------- pipeline
 def _uniform(shape, lo, hi, generator, device):
     return torch.rand(shape, generator=generator, device=device) * (hi - lo) + lo
@@ -191,16 +231,69 @@ def random_geometry(draws: dict, H, W, *, distortion=0.2):
     device = draws["angles"].device
     eye = torch.eye(3, device=device)
     flip = torch.tensor([[1.0, 0.0, 0.0], [0.0, -1.0, W - 1.0], [0.0, 0.0, 1.0]], device=device)
-    base = torch.tensor([[0.0, 0.0], [0.0, W - 1.0], [H - 1.0, W - 1.0], [H - 1.0, 0.0]],
-                        device=device)
-    sign = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, -1.0], [-1.0, 1.0]], device=device)
-    reach = torch.tensor([distortion * H / 2.0, distortion * W / 2.0], device=device)
-    corners = base + draws["corner_u"] * reach * sign
 
     def pick(sel, m):
         return torch.where(sel[:, None, None], m, eye)
 
     Fm = pick(draws["do_flip"], flip)
+    return Fm @ _affine_perspective(draws, H, W, distortion, pick)
+
+
+def _affine_perspective(draws, H, W, distortion, pick):
+    """``A @ P``: the rotation + translation and the perspective of the
+    draws, each passed through ``pick(selected, homographies)``."""
+    device = draws["angles"].device
+    base = torch.tensor([[0.0, 0.0], [0.0, W - 1.0], [H - 1.0, W - 1.0], [H - 1.0, 0.0]],
+                        device=device)
+    sign = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, -1.0], [-1.0, 1.0]], device=device)
+    reach = torch.tensor([distortion * H / 2.0, distortion * W / 2.0], device=device)
+    corners = base + draws["corner_u"] * reach * sign
     A = pick(draws["do_aff"], affine_homography(H, W, draws["angles"], draws["trans"]))
     Pm = pick(draws["do_persp"], perspective_homography(H, W, corners))
-    return Fm @ A @ Pm
+    return A @ Pm
+
+
+def draw_augment(generator, n, H, W, device=None, *, hue=0.01, sat=0.01, sharp=0.3,
+                 degrees=30.0, translate=0.1, p_flip=0.5, p_jitter=0.7, p_sharp=0.4,
+                 p_affine=0.8, p_persp=0.4) -> dict:
+    """The draws of ``random_augment`` for ``n`` images of ``(H, W)``, in
+    the order of the JAX function's ten keys (the corners' unit draws
+    last): ``trans`` in pixels, ``corner_u`` the unit draws of the
+    perspective corners' displacements."""
+    hw = torch.tensor([H, W], dtype=torch.float32, device=device)
+    return {
+        "do_flip": _bernoulli((n,), p_flip, generator, device),
+        "do_jit": _bernoulli((n,), p_jitter, generator, device),
+        "hue_shift": _uniform((n,), -hue, hue, generator, device),
+        "sat_fac": _uniform((n,), 1 - sat, 1 + sat, generator, device),
+        "do_sharp": _bernoulli((n,), p_sharp, generator, device),
+        "sharp_fac": _uniform((n,), 1.0, 1.0 + sharp, generator, device),
+        "do_aff": _bernoulli((n,), p_affine, generator, device),
+        "angles": _uniform((n,), -degrees, degrees, generator, device),
+        "trans": _uniform((n, 2), -translate, translate, generator, device) * hw,
+        "do_persp": _bernoulli((n,), p_persp, generator, device),
+        "corner_u": torch.rand((n, 4, 2), generator=generator, device=device),
+    }
+
+
+def random_augment(draws: dict, batch, *, distortion=0.2, warp_kernel: bool | None = None):
+    """The whole stack on ``batch (N, H, W, C)`` in [0, 1] with the draws
+    of ``draw_augment``: flip, jitter, sharpness, then rotation +
+    translation and perspective composed into one homography per image
+    (``A @ P``), so the batch is resampled once, by
+    ``warp_homography_2pass`` (``warp_kernel``: True the scanline kernel,
+    False the dense form, None the environment's choice). Images that
+    neither geometric augmentation touches are passed through unwarped."""
+    N, H, W, _ = batch.shape
+
+    def pick(sel, new, old):
+        return torch.where(sel.reshape(-1, *(1,) * (new.ndim - 1)), new, old)
+
+    batch = pick(draws["do_flip"], batch.flip(2), batch)
+    batch = pick(draws["do_jit"], color_jitter(batch, draws["hue_shift"], draws["sat_fac"]), batch)
+    batch = pick(draws["do_sharp"], sharpness(batch, draws["sharp_fac"]), batch)
+    eye = torch.eye(3, device=batch.device)
+    # output -> perspective map -> affine map -> source
+    Ms = _affine_perspective(draws, H, W, distortion, lambda sel, m: pick(sel, m, eye))
+    warped = warp_homography_2pass(batch, Ms, warp_kernel=warp_kernel)
+    return pick(draws["do_aff"] | draws["do_persp"], warped, batch)

@@ -8,17 +8,19 @@ output PNG with the prompt in a ``comment`` text chunk, printing the
 per-prompt losses every ``--save_every`` iterations. Runs on the card
 unless ``--cuda_device cpu``; without a card the default fails.
 
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the
+optimisation loop (``utils/profiling.py``).
+
 Without checkpoint files on disk it falls back to randomly initialised
 tiny models, with a warning, so that the whole pipeline stays runnable.
-Not ported: the ModifiedResNet CLIP models (``-m RN50`` ...),
-``--profile_dir``, images whose short side exceeds the CLIP resolution
-(the lanczos cutout path), and sharding a batch of prompt sets over
-several devices; each raises ``NotImplementedError`` (a batch runs on
-the one device).
+Not ported: the ModifiedResNet CLIP models (``-m RN50`` ..., which raise
+``NotImplementedError``), and sharding a batch of prompt sets over
+several devices (a batch runs on the one device).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -27,6 +29,7 @@ import torch
 
 from imagegenerator_tpu_torch.utils.device import entry_device
 from imagegenerator_tpu_torch.utils.png import write_png
+from imagegenerator_tpu_torch.utils.profiling import trace
 from imagegenerator_tpu_torch.v2.arg_parser import get_parser
 from imagegenerator_tpu_torch.v2.clip import CLIPConfig, clip_config_from_state_dict
 from imagegenerator_tpu_torch.v2.engine import (
@@ -117,8 +120,6 @@ def save_png(path: str, image01: np.ndarray, comment: str) -> None:
 
 def main(argv=None):
     args = get_parser(DEFAULT_IMAGE_SIZE).parse_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir is not ported yet")
     device = entry_device(args.cuda_device)
 
     # prompt sets: one image per set. A single -p "a|b" is one image with
@@ -209,12 +210,14 @@ def main(argv=None):
         print(f"progress: {it0 + done}/{args.max_iterations} iterations, "
               f"loss: {', '.join(per_image)}")
 
+    prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
     try:
-        engine.run(
-            state, seed, embeds, w_arr, s_arr, iterations=remaining,
-            display_freq=args.display_freq, checkin=checkin, progress=progress,
-            state_callback=state_callback,
-        )
+        with prof:
+            engine.run(
+                state, seed, embeds, w_arr, s_arr, iterations=remaining,
+                display_freq=args.display_freq, checkin=checkin, progress=progress,
+                state_callback=state_callback,
+            )
     except KeyboardInterrupt:
         pass
 

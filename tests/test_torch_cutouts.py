@@ -11,6 +11,8 @@ bf16-rounded weights and pixels and f32 sums: 1e-4 on values in [0, 1]
 with at most one output in 1,000 off by up to one bf16 step of a weight
 or pixel (8e-3), where a weight lands on the other side of a rounding
 boundary; the scanline-kernel warp is f32 and held to 1e-4 as well.
+The lanczos path's weights are f32 on both sides (1e-6, rounding); its
+cutouts add the augmentation's warp, held like the fast path's.
 """
 
 import jax
@@ -29,12 +31,35 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def augment_draws(key, N, size, hue=0.01, sat=0.01, sharp=0.3, degrees=30.0, translate=0.1):
+    """The draws of ``imagegenerator_tpu.v2.augment.random_augment`` for
+    ``key`` on ``N`` images of ``size x size``: its ten keys in order,
+    the corners from ``fold_in(keys[9], 1)``."""
+    k = jax.random.split(key, 10)
+    return {
+        "do_flip": jax.random.bernoulli(k[0], 0.5, (N,)),
+        "do_jit": jax.random.bernoulli(k[1], 0.7, (N,)),
+        "hue_shift": jax.random.uniform(k[2], (N,), minval=-hue, maxval=hue),
+        "sat_fac": jax.random.uniform(k[3], (N,), minval=1 - sat, maxval=1 + sat),
+        "do_sharp": jax.random.bernoulli(k[4], 0.4, (N,)),
+        "sharp_fac": jax.random.uniform(k[5], (N,), minval=1.0, maxval=1.0 + sharp),
+        "do_aff": jax.random.bernoulli(k[6], 0.8, (N,)),
+        "angles": jax.random.uniform(k[7], (N,), minval=-degrees, maxval=degrees),
+        "trans": jax.random.uniform(k[8], (N, 2), minval=-translate, maxval=translate)
+        * jnp.array([size, size]),
+        "do_persp": jax.random.bernoulli(k[9], 0.4, (N,)),
+        "corner_u": jax.random.uniform(jax.random.fold_in(k[9], 1), (N, 4, 2)),
+    }
+
+
 def jax_draws(key, cutn, B, cut_size, C=3, noise_fac=0.1, hue=0.01, sat=0.01, sharp=0.3,
-              degrees=30.0, translate=0.1):
+              degrees=30.0, translate=0.1, path="fast"):
     """Every draw of ``imagegenerator_tpu.v2.cutouts.MakeCutouts.__call__``
-    (fast path) for ``key``, as the port's ``MakeCutouts.draw`` lays them
-    out: the key tree of ``cutouts.py`` and of ``random_color_augment``
-    and ``random_geometry``."""
+    for ``key``, as the port's ``MakeCutouts.draw`` lays them out: the key
+    tree of ``cutouts.py`` and, on the fast path (``path="fast"``), of
+    ``random_color_augment`` and ``random_geometry``; on the lanczos path
+    with augmentation (``"lanczos"``) of ``random_augment``; without
+    augmentation (``"plain"``) no augmentation draws."""
     N = B * cutn
     k_size, k_off, k_aug, k_noise, k_nfac = jax.random.split(key, 5)
     ck = jax.random.split(k_aug, 5)
@@ -42,7 +67,11 @@ def jax_draws(key, cutn, B, cut_size, C=3, noise_fac=0.1, hue=0.01, sat=0.01, sh
     draws = {
         "u": jax.random.uniform(k_size, (cutn,)),
         "offs": jax.random.uniform(k_off, (cutn, 2)),
-        "color": {
+    }
+    if path == "lanczos":
+        draws["augment"] = augment_draws(k_aug, N, cut_size, hue, sat, sharp, degrees, translate)
+    if path == "fast":
+        draws.update({"color": {
             "do_jit": jax.random.bernoulli(ck[0], 0.7, (N,)),
             "hue_shift": jax.random.uniform(ck[1], (N,), minval=-hue, maxval=hue),
             "sat_fac": jax.random.uniform(ck[2], (N,), minval=1 - sat, maxval=1 + sat),
@@ -57,10 +86,10 @@ def jax_draws(key, cutn, B, cut_size, C=3, noise_fac=0.1, hue=0.01, sat=0.01, sh
             * jnp.array([cut_size, cut_size]),
             "do_persp": jax.random.bernoulli(gk[4], 0.4, (N,)),
             "corner_u": jax.random.uniform(jax.random.fold_in(gk[4], 1), (N, 4, 2)),
-        },
-        "facs": jax.random.uniform(k_nfac, (N, 1, 1, 1), maxval=noise_fac),
-        "noise": jax.random.normal(k_noise, (N, cut_size, cut_size, C)),
-    }
+        }})
+    if noise_fac:
+        draws["facs"] = jax.random.uniform(k_nfac, (N, 1, 1, 1), maxval=noise_fac)
+        draws["noise"] = jax.random.normal(k_noise, (N, cut_size, cut_size, C))
     return jax.tree.map(_t, draws)
 
 
@@ -196,9 +225,114 @@ def test_draw_shapes_ranges_and_replay():
     assert float(quiet(gen, images).max()) <= 1.0
 
 
-@pytest.mark.parametrize("kw,shape", [({}, (1, 32, 32, 3)), ({"force_lanczos": True}, (1, 16, 16, 3)),
-                                      ({"augment": False}, (1, 16, 16, 3))])
-def test_lanczos_path_is_not_ported(kw, shape):
-    port = tcut.MakeCutouts(cut_size=24, cutn=2, **kw)
-    with pytest.raises(NotImplementedError, match="lanczos"):
-        port(torch.Generator().manual_seed(0), torch.zeros(shape))
+# ---------------------------------------------------------- lanczos path
+@pytest.mark.parametrize("in_size,out_size,size,offset", [(40, 24, 31.3, 3.7), (64, 24, 50.2, 10.1),
+                                                          (16, 24, 9.5, 2.25), (16, 24, 16.0, 0.0)],
+                         ids=["down", "down-far", "up", "identity-crop"])
+def test_scale_weights_match_jax_compute_weight_mat(in_size, out_size, size, offset):
+    """``scale_weights`` against the installed JAX's
+    ``jax._src.image.scale.compute_weight_mat`` (lanczos3, antialias on),
+    on down- and upscales: 1e-6 (f32 rounding)."""
+    from jax._src.image import scale as jscale
+
+    s = np.float32(out_size) / np.float32(size)
+    t = -np.float32(offset) * s
+    want = jscale.compute_weight_mat(in_size, out_size, jnp.float32(s), jnp.float32(t),
+                                     jscale._kernels[jax.image.ResizeMethod.LANCZOS3], True)
+    got = tcut.scale_weights(in_size, out_size, torch.tensor([s]), torch.tensor([t]))
+    assert got.shape == (1, out_size, in_size)
+    np.testing.assert_allclose(got[0].numpy().T, np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+LANCZOS_TRIGGERS = [({}, (1, 32, 40, 3), "lanczos"), ({"force_lanczos": True}, (2, 16, 16, 3), "lanczos"),
+                    ({"augment": False}, (1, 16, 16, 3), "plain")]
+
+
+@pytest.mark.parametrize("kw,shape,path", LANCZOS_TRIGGERS, ids=["larger-than-cut", "force_lanczos", "augment-off"])
+def test_lanczos_path_matches_jax(kw, shape, path):
+    """The three triggers of the lanczos path (an image whose short side
+    exceeds ``cut_size``, ``force_lanczos``, augmentation off) against the
+    JAX class with its draws; the tolerance of the fast path, whose dense
+    warp ``random_augment`` shares."""
+    key = jax.random.key(7)
+    cutn, cs = 4, 24
+    B, H, W, _ = shape
+    images = _images(np.random.default_rng(7), B, H, W)
+    port = tcut.MakeCutouts(cut_size=cs, cutn=cutn, warp_kernel=False, **kw)
+    draws = jax_draws(key, cutn, B, cs, path=path)
+    assert set(draws) == set(port.draw(torch.Generator().manual_seed(0), shape))
+    got = port.apply(draws, _t(images))
+    want = jcut.MakeCutouts(cut_size=cs, cutn=cutn, **kw)(key, jnp.asarray(images))
+    assert got.shape == (B * cutn, cs, cs, 3)
+    _mostly_close(got.numpy(), np.asarray(want))
+
+
+def test_lanczos_path_without_noise_or_augmentation_is_exact_resampling():
+    """Augmentation and noise off: the cutouts are the lanczos resample
+    alone, clipped, equal to JAX's to f32 rounding (1e-5); a crop the size
+    of the cut is a copy of the window."""
+    key = jax.random.key(8)
+    cutn, cs = 3, 16
+    images = _images(np.random.default_rng(8), 2, 20, 24)
+    port = tcut.MakeCutouts(cut_size=cs, cutn=cutn, augment=False, noise_fac=0.0)
+    draws = jax_draws(key, cutn, 2, cs, noise_fac=0.0, path="plain")
+    got = port.apply(draws, _t(images))
+    want = jcut.MakeCutouts(cut_size=cs, cutn=cutn, augment=False, noise_fac=0.0)(key, jnp.asarray(images))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    same = tcut.MakeCutouts(cut_size=cs, cutn=1, augment=False, noise_fac=0.0, cut_pow=1.0)
+    one = {"u": torch.zeros(1), "offs": torch.tensor([[0.25, 0.5]])}  # size 16 = the cut
+    crop = same.apply(one, _t(images[:1]))
+    oy, ox = int(0.25 * (20 - 16)), int(0.5 * (24 - 16))
+    np.testing.assert_allclose(crop[0].numpy(), images[0, oy:oy + cs, ox:ox + cs], atol=1e-5)
+
+
+def test_lanczos_path_gradient_matches_jax():
+    """The image gradient through the lanczos resample, the augmentation
+    stack and the clip, at the fast-path gradient test's tolerance."""
+    key = jax.random.key(9)
+    cutn, B, cs = 4, 1, 24
+    images = _images(np.random.default_rng(9), B, 32, 32)
+    cot = np.random.default_rng(10).normal(size=(B * cutn, cs, cs, 3)).astype(np.float32)
+    leaf = _t(images).requires_grad_(True)
+    tcut.MakeCutouts(cut_size=cs, cutn=cutn, warp_kernel=False).apply(
+        jax_draws(key, cutn, B, cs, path="lanczos"), leaf).backward(_t(cot))
+    _, vjp = jax.vjp(lambda im: jcut.MakeCutouts(cut_size=cs, cutn=cutn)(key, im), jnp.asarray(images))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    assert np.abs(leaf.grad.numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("warp_kernel", [False, True], ids=["dense", "kernel"])
+def test_random_augment_matches_jax_with_its_draws(warp_kernel):
+    """``random_augment`` on its own: the dense warp at the cutouts'
+    tolerance; the scanline kernel's plain version, which is f32 where
+    JAX's dense warp rounds pixels and weights to bf16, within two bf16
+    steps of a value in [0, 1] (8e-3) everywhere."""
+    key = jax.random.key(11)
+    batch = _images(np.random.default_rng(11), 6, 20, 20)
+    got = taug.random_augment(jax.tree.map(_t, augment_draws(key, 6, 20)), _t(batch), warp_kernel=warp_kernel)
+    want = np.asarray(jaug.random_augment(key, jnp.asarray(batch)))
+    if warp_kernel:
+        assert np.abs(got.numpy() - want).max() <= 8e-3
+    else:
+        _mostly_close(got.numpy(), want)
+
+
+def test_bilinear_sample_and_its_warp_match_jax():
+    """``bilinear_sample`` per image and batched, with coordinates that
+    leave the image (border clamp), ``homography_grid``, and the one-pass
+    warp they make together (JAX's ``warp_impl != "2pass"``): 1e-5 for
+    the samples, 1e-4 for the grid and the warp, all f32."""
+    rng = np.random.default_rng(12)
+    imgs = rng.uniform(size=(3, 9, 11, 3)).astype(np.float32)
+    coords = rng.uniform(-2, 12, (3, 7, 5, 2)).astype(np.float32)
+    want = jax.vmap(jaug.bilinear_sample)(jnp.asarray(imgs), jnp.asarray(coords))
+    np.testing.assert_allclose(taug.bilinear_sample(_t(imgs), _t(coords)).numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(taug.bilinear_sample(_t(imgs[1]), _t(coords[1])).numpy(), np.asarray(want[1]),
+                               atol=1e-5)
+    Ms = taug.affine_homography(9, 11, _t(rng.uniform(-30, 30, 3).astype(np.float32)),
+                                _t(rng.uniform(-1, 1, (3, 2)).astype(np.float32)))
+    grid = jax.vmap(lambda m: jaug.homography_grid(9, 11, m))(jnp.asarray(Ms.numpy()))
+    np.testing.assert_allclose(taug.homography_grid(9, 11, Ms).numpy(), np.asarray(grid), rtol=1e-5, atol=1e-4)
+    got = taug.bilinear_sample(_t(imgs), taug.homography_grid(9, 11, Ms))
+    want = jax.vmap(jaug.bilinear_sample)(jnp.asarray(imgs), grid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)

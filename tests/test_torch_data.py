@@ -20,6 +20,7 @@ from PIL import Image
 from imagegenerator_tpu import data as jdata
 from imagegenerator_tpu.data import native as jnative
 from imagegenerator_tpu_torch.data import coco, storage
+from imagegenerator_tpu_torch.data import native as tnative
 from imagegenerator_tpu_torch.data.pipeline import DataLoader
 from imagegenerator_tpu_torch.data.tokenizer import HashTokenizer
 from imagegenerator_tpu_torch.utils import png
@@ -29,9 +30,13 @@ torch.set_num_threads(2)
 
 @pytest.fixture(autouse=True)
 def jax_pillow_route(monkeypatch):
-    """The JAX package decodes with Pillow, not with its C++ host ops
-    (which agree with Pillow to about 1/255 only)."""
+    """Both packages decode with Pillow, not with their C++ host ops
+    (which agree with Pillow to about 1/255 only;
+    ``tests/test_torch_native.py`` holds the two packages' host-ops
+    routes to each other)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "jpeg", lambda: False)
 
 
 def _png(arr) -> bytes:

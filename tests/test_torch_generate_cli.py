@@ -2,7 +2,9 @@
 fallback models (no checkpoint files): the PNG and its ``comment`` chunk
 as Pillow reads it, ``--prompts_file`` batches, ``--state`` resume, a
 checkpoint under taming's and OpenAI's names loaded from disk, the
-default device, and what is not ported (``NotImplementedError``)."""
+default device, an image larger than CLIP's resolution (the lanczos
+cutout path), ``--profile_dir``, and what is not ported
+(``NotImplementedError``)."""
 
 import json
 
@@ -135,12 +137,43 @@ def test_checkpoints_under_published_names_load_from_disk(tmp_path, capsys):
 
 @pytest.mark.parametrize("args,match", [
     (["-p", "a fox", "-m", "RN50"], "ModifiedResNet"),
-    (["-p", "a fox", "--profile_dir", "prof"], "profile_dir"),
-    (["-p", "a fox", "-s", "64", "64"], "lanczos"),
 ])
 def test_what_is_not_ported_raises(args, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         generate.main(["-cd", "cpu", "-sd", "0", "-i", "1", "-o", str(tmp_path / "o.png"), *args])
+
+
+@pytest.mark.parametrize("size", [(64, 64), (64, 40)])
+def test_an_image_larger_than_clips_resolution_takes_the_lanczos_path(size, tmp_path, capsys, monkeypatch):
+    """The tiny CLIP sees 32 px, so a 64 x 64 or 64 x 40 image takes the
+    lanczos cutouts: the run writes its PNG at the asked size and logs
+    finite losses, with the dense warp and with the scanline kernel's
+    plain version."""
+    from imagegenerator_tpu_torch.v2 import cutouts
+
+    seen = []
+    apply = cutouts.MakeCutouts._lanczos_cutouts
+    monkeypatch.setattr(cutouts.MakeCutouts, "_lanczos_cutouts",
+                        lambda self, *a: seen.append(a[1].shape) or apply(self, *a))
+    for kernel in ("0", "1"):
+        monkeypatch.setenv("IMAGEGEN_WARP_KERNEL", kernel)
+        out = tmp_path / f"o{kernel}.png"
+        generate.main(["-cd", "cpu", "-sd", "0", "-i", "2", "-se", "1", "-p", "a fox", "-s", *map(str, size),
+                       "-o", str(out)])
+        lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("i: ")]
+        assert len(lines) == 3 and all(np.isfinite(float(l.split("loss: ")[1].split(",")[0])) for l in lines)
+        with Image.open(out) as im:
+            assert im.size == size
+    assert seen and all(s[1:3] == (size[1], size[0]) for s in seen)
+
+
+def test_profile_dir_writes_a_trace_of_the_run(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    generate.main(["-cd", "cpu", "-sd", "0", "-i", "2", "-se", "1", "-s", "32", "32", "-p", "a fox",
+                   "-o", str(tmp_path / "o.png"), "--profile_dir", str(prof)])
+    assert f"[profile] trace written to {prof / 'trace_rank0.json'}" in capsys.readouterr().out
+    events = json.loads((prof / "trace_rank0.json").read_text())["traceEvents"]
+    assert any("conv" in e.get("name", "") for e in events)
 
 
 def test_cli_defaults_to_the_card_and_refuses_unknown_models(tmp_path):

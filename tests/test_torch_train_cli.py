@@ -156,14 +156,48 @@ def test_sample_ema_needs_an_ema_run(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--tp", "2"], "--tp > 1: tensor parallelism is not ported yet"),
-    (["--multihost"], "--multihost: data parallelism over torch.distributed is not ported yet"),
-    (["--profile_dir", "prof"], "--profile_dir: the profiler hook is not ported yet"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, message):
     with pytest.raises(SystemExit, match=re.escape(message)) as e:
         cli.main(_args(str(tmp_path), str(tmp_path / "ckpt"), 1, *flags))
     assert "ROADMAP.md" in str(e.value)
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_cli_profile_dir_writes_a_trace_of_the_training_loop(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    cli.main(_args(_dataset(tmp_path / "ds"), str(tmp_path / "ckpt"), 1, "--profile_dir", str(prof)))
+    out = capsys.readouterr().out
+    assert len(_steps(out)) == 2 and f"[profile] trace written to {prof / 'trace_rank0.json'}" in out
+    assert os.listdir(prof) == ["trace_rank0.json"]
+    events = json.loads((prof / "trace_rank0.json").read_text())["traceEvents"]
+    assert any("conv" in e.get("name", "") for e in events)
+
+
+def test_cli_multihost_runs_as_one_rank_over_gloo(tmp_path, capsys, monkeypatch):
+    """``--multihost`` in torchrun's environment at world size 1 on the
+    CPU: the process group is joined (gloo), the run trains and saves as
+    the plain run does, and the group is left at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ckpt = tmp_path / "ckpt"
+    cli.main(_args(_dataset(tmp_path / "ds"), str(ckpt), 1, "--multihost"))
+    out = capsys.readouterr().out
+    assert "[dp] rank 0 of 1 (local 0 of 1) on cpu: backend gloo (the CPU)" in out
+    assert len(_steps(out)) == 2 and not dist.is_initialized()
+    assert _tree(ckpt / "Stage1") == ["LATEST_EPOCH", "epochs/checkpoint_epoch_0/state.npz", "latest/state.npz"]
+    monkeypatch.delenv("MASTER_PORT")
+    with pytest.raises(SystemExit, match="torchrun's environment; missing \\['MASTER_PORT'\\]"):
+        cli.main(_args(str(tmp_path / "ds"), str(ckpt), 1, "--multihost"))
 
 
 def test_cli_needs_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
