@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's v1 sampling path, its stage-1 and stage-2
 training steps, the chain of its training and sampling CLIs, its v2
-VQGAN+CLIP generation and its data parallelism on one CUDA card (or two,
-where there are).
+VQGAN+CLIP generation, its data parallelism and its evaluation CLI on
+one CUDA card (or two, where there are).
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6,
-                                     # --only train2: phase 8, --only dp: phase 9)
+                                     # --only train2: phase 8, --only dp: phase 9,
+                                     # --only eval: phase 10)
     python3 chip_smoke.py --only d2-trace  # phase 8 (a)'s f32 step traced per critic
                                            # update on six states (phase_d2_trace)
     python3 chip_smoke.py --only tiny-trace  # phase 8 (c)'s tiny step under other
@@ -161,12 +162,50 @@ non-zero exit and no result line:
    width, batch 32 a rank, on 64 PNGs as phase 8 writes them, twice:
    rank 0 alone logs steps and writes the checkpoint, both ranks resume,
    ``--profile_dir`` leaves one trace per rank.
+10. the CLIP family and evaluation, full width, from seeded random
+   weights written under OpenAI's names (``seeded_clip_state``: He-scaled
+   convolutions, BatchNorm statistics away from the identity, and in the
+   file BatchNorm's counters and ``logit_scale``, as published). (1)
+   RN50's image tower at batch 4 and its text tower on the card (f32, off
+   TF32 and cuDNN) against the CPU, max abs difference over the largest
+   output <= 1e-4; a planted fault (the attention pool without its mean
+   token) must be caught. (2) The v2 CLI with ``-m RN50`` (the slice's
+   path: the ImageNet f16 VQGAN, 128 px, 32 cutouts at 224 px, f32, warp
+   kernel on) for 3 iterations: PNG, ``comment`` chunk, finite losses,
+   launch counts; one step's launches (one ``vq_argmin``, two
+   ``scanline_lerp``); one batch-4 step kernels on vs off at phase 7's
+   limits in f32; 20-step windows at batch 1, kernels on and off. (3)
+   The evaluation CLI on 512 generated 256 px images (an ``.npz``)
+   against 512 reference PNGs (blocky colour fields of two different
+   laws) with 512 captions (``@file``), ``--batch 64``, ViT-B/32 and
+   RN50 in f32 and bf16: the JSON line's keys, counts and finite values,
+   the CLIPScore in [0, 100], and both numbers against numpy's from the
+   card's embeddings (1e-6 relative plus half a unit of the digit the
+   line keeps); 512 samples span at most 511 dimensions, so both towers'
+   covariances (512 and 1024 dimensions) must take the eps
+   regularisation; then phase 8's sampled PNGs scored against their
+   captions (sample -> evaluate; left out under ``--only eval``). A
+   witness, printed and not held: RN50's numbers from embeddings at
+   batch 64 and at 32 in one process, TF32 off, and the v2 losses of
+   one batch-4 engine against two batch-2 halves (``shard=``) over 3
+   iterations. (4) ``torchrun --standalone
+   --nproc_per_node 2`` (a card a rank over NCCL where there are two,
+   else both on ``cuda:0`` over gloo) against one process, both with
+   TF32 off (``NVIDIA_TF32_OVERRIDE=0``): the eval CLI with ``--dp 2``
+   (its line equal, floats to 1e-5 relative), and the v2 CLI at batch 4
+   (``--prompts_file`` of 4 lines, RN50, 3 iterations; loss lines to
+   1e-4 relative, PNG pixels within 1 of 255). (5) Times: each tower's
+   embedding rate at batch 64 from 256 px images on the card (the
+   resize included) under the CLI's defaults, in f32 and bf16, and the
+   device's busy share over one batch; the CLI's wall seconds and the
+   RN50 v2 step's ms come from (2) and (3).
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
 could take and, where one PyTorch call computes the same function, that
-call's; the v2 kernels also with their launches at 256 px), the card's line
-from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
+call's; the v2 kernels also with their launches at 256 px and on one
+RN50 step), the card's line from nvidia-smi, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1439,6 +1478,28 @@ def run_v2_cli(args, warp_kernel: str = "1") -> str:
             os.environ["IMAGEGEN_WARP_KERNEL"] = before
 
 
+def write_vqgan(tmp: Path, gen) -> dict:
+    """A seeded random-init full-width VQGAN written to ``tmp`` as
+    taming's ``vqgan.ckpt`` (Lightning layout) and ``vqgan.yaml``; its
+    ``state_dict`` on the card."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.vqgan import VQModel
+
+    vq_cfg, _ = v2_configs()
+    vq_state = VQModel(vq_cfg, device="cuda", generator=gen).state_dict()
+    torch.save({"state_dict": {k: v.cpu() for k, v in vq_state.items()}}, tmp / "vqgan.ckpt")
+    # taming's yaml; written in JSON's syntax, which is YAML too
+    (tmp / "vqgan.yaml").write_text(json.dumps({"model": {
+        "target": "taming.models.vqgan.VQModel",
+        "params": {"embed_dim": vq_cfg.embed_dim, "n_embed": vq_cfg.n_embed, "ddconfig": {
+            "z_channels": vq_cfg.z_channels, "resolution": vq_cfg.resolution,
+            "in_channels": vq_cfg.in_channels, "out_ch": vq_cfg.out_ch, "ch": vq_cfg.ch,
+            "ch_mult": list(vq_cfg.ch_mult), "num_res_blocks": vq_cfg.num_res_blocks,
+            "attn_resolutions": list(vq_cfg.attn_resolutions), "dropout": vq_cfg.dropout}}}}))
+    return vq_state
+
+
 def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
     import math
 
@@ -1446,25 +1507,15 @@ def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
     import torch
 
     from imagegenerator_tpu_torch.v2.clip import CLIP
-    from imagegenerator_tpu_torch.v2.vqgan import VQModel
 
     log("phase 7: v2 main path, full width")
     t0 = time.perf_counter()
-    vq_cfg, clip_cfg = v2_configs()
+    _, clip_cfg = v2_configs()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    vq_state = VQModel(vq_cfg, device="cuda", generator=gen).state_dict()
+    vq_state = write_vqgan(tmp, gen)
     clip_state = CLIP(clip_cfg, device="cuda", generator=gen).state_dict()
     ckpt, conf, clip_pt = tmp / "vqgan.ckpt", tmp / "vqgan.yaml", tmp / "ViT-B-32.pt"
-    torch.save({"state_dict": {k: v.cpu() for k, v in vq_state.items()}}, ckpt)
     torch.save({k: v.cpu() for k, v in clip_state.items()}, clip_pt)
-    # taming's yaml; written in JSON's syntax, which is YAML too
-    conf.write_text(json.dumps({"model": {
-        "target": "taming.models.vqgan.VQModel",
-        "params": {"embed_dim": vq_cfg.embed_dim, "n_embed": vq_cfg.n_embed, "ddconfig": {
-            "z_channels": vq_cfg.z_channels, "resolution": vq_cfg.resolution,
-            "in_channels": vq_cfg.in_channels, "out_ch": vq_cfg.out_ch, "ch": vq_cfg.ch,
-            "ch_mult": list(vq_cfg.ch_mult), "num_res_blocks": vq_cfg.num_res_blocks,
-            "attn_resolutions": list(vq_cfg.attn_resolutions), "dropout": vq_cfg.dropout}}}}))
     n_vq = sum(v.numel() for v in vq_state.values())
     n_clip = sum(v.numel() for v in clip_state.values())
     log(f"  full-width random init: VQGAN {n_vq / 1e6:.1f}M, CLIP ViT-B/32 {n_clip / 1e6:.1f}M "
@@ -1507,14 +1558,16 @@ def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
     return launches, vq_state, clip_state
 
 
-def v2_engine(vq_state, clip_state, dtype, kernels: bool, vq_kernel=None):
+def v2_engine(vq_state, clip_state, dtype, kernels: bool, vq_kernel=None, clip_cfg=None):
     """A full-width engine sharing the given weights. ``kernels``: the
     warp through the scanline kernel and the argmin kernel, or the dense
-    warp and the plain argmin; ``vq_kernel`` overrides the argmin's."""
+    warp and the plain argmin; ``vq_kernel`` overrides the argmin's.
+    ``clip_cfg``: the CLIP tower (None: phase 7's ViT-B/32)."""
     from imagegenerator_tpu_torch.v2.engine import GenerateEngine
 
+    vq_cfg, vit = v2_configs()
     vq_on = kernels if vq_kernel is None else vq_kernel
-    return GenerateEngine(*v2_configs(), vq_state, clip_state, compute_dtype=dtype,
+    return GenerateEngine(vq_cfg, clip_cfg or vit, vq_state, clip_state, compute_dtype=dtype,
                           warp_kernel=kernels, use_vq_kernel=None if vq_on else False, device="cuda")
 
 
@@ -1542,20 +1595,21 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
 
 
-def phase_v2_on_off(vq_state, clip_state, gen, batch=4, side=8, dtypes=("f32", "bf16")):
+def phase_v2_on_off(vq_state, clip_state, gen, batch=4, side=8, dtypes=("f32", "bf16"), clip_cfg=None,
+                    phase=7):
     """One step at ``batch`` on a ``side`` x ``side`` latent from the same
     state and draws, kernels on vs off, in each of ``dtypes``."""
     import torch
 
-    log(f"phase 7: one v2 step at batch {batch}, {16 * side} px, kernels on vs off")
+    log(f"phase {phase}: one v2 step at batch {batch}, {16 * side} px, kernels on vs off")
     set_tf32(False)
     for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
         if tag not in dtypes:
             continue
         engines = {
-            "kernels on": v2_engine(vq_state, clip_state, dtype, True),
-            "plain argmin": v2_engine(vq_state, clip_state, dtype, True, vq_kernel=False),
-            "dense warp": v2_engine(vq_state, clip_state, dtype, False, vq_kernel=True),
+            "kernels on": v2_engine(vq_state, clip_state, dtype, True, clip_cfg=clip_cfg),
+            "plain argmin": v2_engine(vq_state, clip_state, dtype, True, vq_kernel=False, clip_cfg=clip_cfg),
+            "dense warp": v2_engine(vq_state, clip_state, dtype, False, vq_kernel=True, clip_cfg=clip_cfg),
         }
         on = engines["kernels on"]
         z0 = on.random_token_latent(gen, batch, side, side)
@@ -1744,16 +1798,17 @@ def phase_v2_lanczos(tmp: Path, vq_argmin, scanline_lerp, card):
     return launches
 
 
-def phase_v2_lanczos_times(vq_state, clip_state, gen, card):
-    """20-step windows at 256 px, batch 1, f32, kernels on and off in
-    turns."""
+def phase_v2_lanczos_times(vq_state, clip_state, gen, card, size=V2_LANCZOS, clip_cfg=None, what=None):
+    """20-step windows at ``size`` px (256: the lanczos cutouts), batch 1,
+    f32, kernels on and off in turns; the median ms a step of each."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    engines = {tag: v2_engine(vq_state, clip_state, None, tag == "on") for tag in ("on", "off")}
+    what = what or f"{size} px"
+    engines = {tag: v2_engine(vq_state, clip_state, None, tag == "on", clip_cfg=clip_cfg) for tag in ("on", "off")}
     prompts = v2_prompts(engines["on"], 1)
-    side = V2_LANCZOS // 16
+    side = size // 16
     z0 = engines["on"].random_token_latent(gen, 1, side, side)
     states = {tag: e.init_state(z0) for tag, e in engines.items()}
 
@@ -1770,17 +1825,19 @@ def phase_v2_lanczos_times(vq_state, clip_state, gen, card):
     for i in range(3):
         for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
             samples[tag].append(window(tag))
+    step_ms = {}
     for tag in ("on", "off"):
-        ms = statistics.median(samples[tag])
-        log(f"  v2 step {V2_LANCZOS} px batch 1 f32 kernels {tag}: {ms:.3f} ms per step, {1e3 / ms:.2f} "
+        step_ms[tag] = ms = statistics.median(samples[tag])
+        log(f"  v2 step {what} batch 1 f32 kernels {tag}: {ms:.3f} ms per step, {1e3 / ms:.2f} "
             f"steps/s (windows of {V2_WINDOW}: {', '.join(f'{t:.2f}' for t in samples[tag])}) [{card}]")
     host_ms, events = profiled(lambda: engines["on"].chain(states["on"], 5, SEED, *prompts), calls=1)
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"  profiled 5 steps at {V2_LANCZOS} px, kernels on: host {host_ms / 5:.3f} ms per step, device busy "
+    log(f"  profiled 5 steps at {what}, kernels on: host {host_ms / 5:.3f} ms per step, device busy "
         f"{busy / 5:.3f} ms per step ({100 * busy / host_ms:.1f}%), {sum(e.count for e in events) // 5} "
         "kernels per step")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"    {e.self_device_time_total / 5e3:8.3f} ms {e.count // 5:5d}x {e.key[:90]}")
+    return step_ms
 
 
 def phase_v2(vq_argmin, scanline_lerp, gen, card):
@@ -2428,24 +2485,69 @@ def phase_tiny_trace(card):
                 torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
 
 
+def host_description() -> str:
+    """The host's CPU model and count, and what sets the CPU's f32
+    arithmetic: oneDNN, the fp32 precision settings and the environment
+    variables oneDNN, MKL and OpenMP read. Phase 8 (c) holds the card to
+    the CPU, and on one machine in three it read far off (Findings in
+    ``PERF.md``, PR 8): this line tells such machines apart."""
+    import os
+
+    import torch
+
+    model = "unknown CPU"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((l.split(":", 1)[1].strip() for l in f if l.startswith("model name")), model)
+    except OSError:
+        pass
+
+    def setting(path):
+        obj = torch
+        for part in path.split("."):
+            obj = getattr(obj, part, None)
+        return obj
+
+    knobs = {p: setting(p) for p in ("backends.fp32_precision", "backends.mkldnn.conv.fp32_precision",
+                                      "backends.mkldnn.matmul.fp32_precision")}
+    env = {k: v for k, v in os.environ.items() if k.startswith(("ONEDNN", "DNNL", "MKL", "OMP", "KMP"))}
+    return (f"{model}, {os.cpu_count()} CPUs, {torch.get_num_threads()} torch threads; oneDNN "
+            f"{torch.backends.mkldnn.is_available()}; float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}; {knobs}; environment {env}")
+
+
 def phase_train2_tiny(gen):
     """(c) one step at ``Stage2Config.tiny()`` on the card against the same
     step on the CPU, f32, TF32 off, from one state with the noise
     replayed. This ties the card to the CPU, which the tests hold to JAX.
     The held step runs off cuDNN (``exact_f32``); the same step on cuDNN
     is printed beside it."""
+    import torch
+
     from imagegenerator_tpu_torch.train.stage2 import TRAINED
 
     set_tf32(False)
     cfg, init, batch, noise = train2_tiny_inputs()
     cpu, m_cpu = train2_tiny_step(cfg, init, batch, noise, "cpu")
 
-    def check(noise, what):
+    def check(noise, what, cpu=cpu, m_cpu=m_cpu):
         with exact_f32():
             card, m_card = train2_tiny_step(cfg, init, batch, noise, "cuda")
         hold_tiny_step(what, cpu, m_cpu, card, m_card, TRAINED, cfg.d2_channels)
 
-    check(noise, "(c) tiny step, card vs CPU, f32")
+    try:
+        check(noise, "(c) tiny step, card vs CPU, f32")
+    except AssertionError:
+        # which side moved: the same card step against a CPU step whose
+        # convolutions run off oneDNN (PyTorch's own kernels); printed
+        # before the check's failure is raised
+        with torch.backends.mkldnn.flags(enabled=False):
+            plain = train2_tiny_step(cfg, init, batch, noise, "cpu")
+        try:
+            check(noise, "(c) the card vs the CPU off oneDNN, printed before the failure above is raised", *plain)
+        except AssertionError as e:
+            log(f"  {e}")
+        raise
     card, m_card = train2_tiny_step(cfg, init, batch, noise, "cuda")
     try:
         hold_tiny_step("(c) the same step on cuDNN, printed, not held", cpu, m_cpu, card, m_card, TRAINED,
@@ -2478,9 +2580,10 @@ def write_chain_dataset(root: Path) -> None:
     (root / "ann" / "captions.json").write_text(json.dumps({"images": images, "annotations": anns}))
 
 
-def phase_train2_chain(tmp: Path, attention, layernorm, card):
+def phase_train2_chain(tmp: Path, attention, layernorm, card, samples_to: Path | None = None):
     """train.cli --stage 1 -> train.cli --stage 2 -> train.sample --ema,
-    full width, as a user runs them."""
+    full width, as a user runs them. ``samples_to``: where the sampled
+    PNGs are copied, for phase 10 to score."""
     import numpy as np
     import torch
 
@@ -2581,10 +2684,14 @@ def phase_train2_chain(tmp: Path, attention, layernorm, card):
     if len(pngs) != BATCH or sizes != {(256, 256)} or comments != want:
         raise AssertionError(f"expected {BATCH} PNGs of 256x256 with their captions, got {len(pngs)} {sizes} {comments}")
     log(f"  {len(pngs)} PNGs at 256x256 from the EMA weights, comment chunks match the captions")
+    if samples_to is not None:
+        import shutil
+
+        shutil.copytree(out, samples_to)
     return launches
 
 
-def phase_train2(attention, layernorm, gen, card):
+def phase_train2(attention, layernorm, gen, card, samples_to: Path | None = None):
     log(f"phase 8: stage-2 training path, full width, bf16, n_critic 5, on {card}")
     state, totals, batch_size, times = phase_train2_steps(attention, layernorm, gen, card)
     log(f"phase 8: one step at batch {TRAIN2_CHECK_BATCH}, kernels on vs off, tem route vs tokens route")
@@ -2593,7 +2700,7 @@ def phase_train2(attention, layernorm, gen, card):
     log("phase 8: one tiny step, card vs CPU")
     phase_train2_tiny(gen)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_train2_chain(Path(tmp), attention, layernorm, card)
+        phase_train2_chain(Path(tmp), attention, layernorm, card, samples_to)
     return totals, batch_size, times
 
 
@@ -2989,13 +3096,551 @@ def phase_dp(card) -> None:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all")
 
 
+# ------------------------------------------------ CLIP family and evaluation
+
+RN_BATCH = 4
+# RN50 on the card (f32, off TF32 and cuDNN) against the CPU: max abs
+# difference over the largest output, image and text towers
+RN_TOL = 1e-4
+V2_RN_ITERS = 3
+EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 512, 256, 64
+# the eval CLI's numbers against the same embeddings' numbers recomputed
+# in numpy: relative, plus half a unit of the last digit the JSON line
+# keeps (4 decimals for the score, 6 for the distance)
+EVAL_RECOMPUTE_TOL = 1e-6
+EVAL_ROUNDING = {"clip_score": 0.5e-4, "frechet_clip_distance": 0.5e-6}
+EVAL_DP_TOL = 1e-5  # eval over two ranks against one process, f32, TF32 off: relative
+V2_RANKS_TOL = {"losses": 1e-4, "pixels": 1}  # v2 over two ranks against one process: relative; of 255
+# both sides of phase 10 (4): TF32 off in cuBLAS and cuDNN, the warp kernel on
+RANKS_ENV = {"NVIDIA_TF32_OVERRIDE": "0", "IMAGEGEN_WARP_KERNEL": "1"}
+RANKS_PROMPTS = ["a watercolor fox|stormy sea:0.5", "a red bus on a street", "two dogs on a beach:1:0.2|blurry:-0.5",
+                 "a bowl of fruit"]
+
+
+def seeded_clip_state(cfg, seed: int) -> dict:
+    """A full-width CLIP ``state_dict`` under OpenAI's names, on the CPU,
+    from a seed: the port's init with each convolution scaled to He's
+    variance and each frozen BatchNorm given statistics and an affine
+    away from the identity, the last of each bottleneck (``bn3``) scaled
+    to 0.2-0.3, where OpenAI's initialisation zeroes it (as
+    ``tests/test_torch_clip_resnet.py`` draws its tiny ones). With every
+    residual branch at full scale the tower's features grow to a std of
+    about 200 and it amplifies a relative input change 6.7 times; so
+    scaled, 0.6 and 0.28 (RN50 at 224 px on the CPU)."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIP
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = CLIP(cfg, device="cpu", generator=gen).state_dict()
+    with torch.no_grad():
+        for k, v in sd.items():
+            if v.ndim == 4 and cfg.is_resnet:
+                v.mul_(6 ** 0.5)
+            elif k.endswith("running_mean"):
+                v.normal_(0.0, 0.05, generator=gen)
+            elif k.endswith("running_var"):
+                v.uniform_(0.8, 1.2, generator=gen)
+            elif ".bn" in k or ".downsample.1." in k:
+                if k.endswith("weight"):
+                    v.uniform_(0.8, 1.2, generator=gen).mul_(0.25 if ".layer" in k and ".bn3." in k else 1.0)
+                else:
+                    v.normal_(0.0, 0.1, generator=gen)
+    return sd
+
+
+def save_published(sd: dict, path: Path) -> None:
+    """``sd`` as OpenAI ships a checkpoint: with ``logit_scale`` and, for
+    a ResNet, BatchNorm's ``num_batches_tracked`` counters."""
+    import torch
+
+    extra = {k.replace("running_var", "num_batches_tracked"): torch.tensor(0)
+             for k in sd if k.endswith("running_var")}
+    torch.save({**sd, **extra, "logit_scale": torch.tensor(4.6052)}, path)
+
+
+def pool_without_mean(pool):
+    """A planted fault: the attention pool with its mean token left out
+    (the first grid token is the query)."""
+    import math
+
+    import torch
+
+    def forward(x):
+        B, C, H, W = x.shape
+        t = x.permute(0, 2, 3, 1).reshape(B, H * W, C) + pool.positional_embedding[1:].to(x.dtype)
+        q = pool.q_proj(t[:, :1]).reshape(B, 1, pool.heads, -1).transpose(1, 2)
+        k, v = (p(t).reshape(B, H * W, pool.heads, -1).transpose(1, 2) for p in (pool.k_proj, pool.v_proj))
+        attn = torch.softmax(q.float() @ k.float().transpose(-1, -2) / math.sqrt(C // pool.heads), dim=-1)
+        return pool.c_proj((attn.to(v.dtype) @ v).reshape(B, C))
+
+    return forward
+
+
+def phase_rn50_towers(rn_sd) -> None:
+    """(1): RN50's towers on the card against the CPU."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIP, CLIPConfig
+    from imagegenerator_tpu_torch.v2.engine import frozen
+    from imagegenerator_tpu_torch.v2.tokenizer import open_tokenizer
+
+    cfg = CLIPConfig.rn50()
+    log(f"phase 10: RN50 on the card against the CPU, batch {RN_BATCH}, f32 off TF32 and cuDNN")
+    t0 = time.perf_counter()
+    images = torch.randn((RN_BATCH, cfg.image_resolution, cfg.image_resolution, 3),
+                         generator=torch.Generator().manual_seed(SEED))
+    tokens = torch.as_tensor(open_tokenizer(None, cfg.context_length, cfg.vocab_size)(CAPTIONS.split("|")))
+    models = {dev: frozen(CLIP, cfg, rn_sd, device=dev) for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        want = {"image": models["cpu"].encode_image(images), "text": models["cpu"].encode_text(tokens)}
+
+    def hold(quiet=False):
+        with torch.no_grad(), exact_f32():
+            got = {"image": models["cuda"].encode_image(images.cuda()).cpu(),
+                   "text": models["cuda"].encode_text(tokens.cuda()).cpu()}
+        for tower, w in want.items():
+            err = ((got[tower] - w).abs().max() / w.abs().max()).item()
+            ok = bool(torch.isfinite(got[tower]).all()) and got[tower].shape == w.shape and err <= RN_TOL
+            if not (ok and quiet):
+                log(f"  {tower} tower {tuple(w.shape)}: max abs difference / largest {err:.3e} "
+                    f"(limit {RN_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"RN50's {tower} tower on the card disagrees with the CPU")
+
+    hold()
+    pool = models["cuda"].visual.attnpool
+    pool.forward = pool_without_mean(pool)
+    try:
+        must_catch("the attention pool without its mean token", lambda: hold(quiet=True))
+    finally:
+        del pool.forward
+    log(f"  {sum(v.numel() for v in rn_sd.values()) / 1e6:.1f}M parameters; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_rn50_v2(tmp: Path, rn_sd, vq_argmin, scanline_lerp, gen, card):
+    """(2): the v2 CLI with ``-m RN50`` at full width, one step's
+    launches, a batch-4 step kernels on vs off, 20-step windows. Returns
+    the launches of one step and the VQGAN's ``state_dict``."""
+    import math
+
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIPConfig
+    from imagegenerator_tpu_torch.v2.engine import iteration_generator
+
+    log(f"phase 10: the v2 CLI with -m RN50, full width, {V2_IMAGE} px, warp kernel on")
+    rn50 = CLIPConfig.rn50()
+    vq_state = write_vqgan(tmp, gen)
+    out = tmp / "rn50.png"
+    files = ["-conf", str(tmp / "vqgan.yaml"), "-ckpt", str(tmp / "vqgan.ckpt"), "-m", "RN50",
+             "--clip_checkpoint", str(tmp / "RN50.pt"), "-o", str(out)]
+    vq_argmin.launches = scanline_lerp.launches = 0
+    t0 = time.perf_counter()
+    printed = run_v2_cli(V2_ARGS + ["-i", str(V2_RN_ITERS)] + files)
+    torch.cuda.synchronize()
+    counts = v2_counts(vq_argmin, scanline_lerp)
+    checkins = V2_RN_ITERS // V2_EVERY + 1  # each: one synth and one loss evaluation
+    want = {"vq_argmin": V2_RN_ITERS + 2 * checkins, "scanline_lerp": 2 * V2_RN_ITERS + 2 * checkins}
+    log(f"  {V2_RN_ITERS} iterations: {time.perf_counter() - t0:.1f} s; launches {counts} [{card}]")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    losses = [float(l.split("loss: ")[1].split(",")[0]) for l in printed.splitlines()
+              if l.startswith(("i: ", "progress: "))]
+    if len(losses) != checkins + V2_RN_ITERS // V2_EVERY or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses {losses}")
+    comment = png_comment(out)
+    if png_size(out) != (V2_IMAGE, V2_IMAGE) or comment != str(V2_ARGS[1].split("|")):
+        raise AssertionError(f"{out}: size {png_size(out)}, comment {comment!r}")
+    log(f"  {V2_IMAGE}x{V2_IMAGE} PNG, comment {comment!r}; {len(losses)} finite losses; launches match {want}")
+
+    engine = v2_engine(vq_state, rn_sd, None, True, clip_cfg=rn50)
+    if engine.make_cutouts.cut_size != rn50.image_resolution:
+        raise AssertionError(f"cutouts at {engine.make_cutouts.cut_size} px for a {rn50.image_resolution} px tower")
+    state = engine.init_state(engine.random_token_latent(gen, 1, V2_IMAGE // 16, V2_IMAGE // 16))
+    prompts = v2_prompts(engine, 1)
+    vq_argmin.launches = scanline_lerp.launches = 0
+    engine.step(state, iteration_generator(SEED, 0, "cuda"), *prompts)
+    torch.cuda.synchronize()
+    step_launches = v2_counts(vq_argmin, scanline_lerp)
+    if step_launches != {"vq_argmin": 1, "scanline_lerp": 2}:
+        raise AssertionError(f"one RN50 step launched {step_launches}")
+    log(f"  one RN50 step at batch 1 launches {step_launches}")
+    del engine, state
+    phase_v2_on_off(vq_state, rn_sd, gen, dtypes=("f32",), clip_cfg=rn50, phase=10)
+    phase_v2_lanczos_times(vq_state, rn_sd, gen, card, size=V2_IMAGE, clip_cfg=rn50, what=f"RN50 {V2_IMAGE} px")
+    return step_launches, vq_state
+
+
+def write_eval_sets(root: Path) -> None:
+    """``EVAL_IMAGES`` generated images as ``generated.npz`` (uint8) and as
+    many reference PNGs in ``ref/``, all ``EVAL_SIZE`` px, blocky colour
+    fields with noise, and ``captions.txt`` (``CAPTIONS`` in turn, one a
+    line). The two sets are drawn from different laws (8 x 8 blocks over
+    the whole range against 4 x 4 blocks over its middle), as a generated
+    set and a real one differ: two sets of one law would put the distance
+    at its sampling noise, a small difference of large traces."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from imagegenerator_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(SEED)
+
+    def images(grid, lo, hi):
+        base = rng.integers(lo, hi, (EVAL_IMAGES, grid, grid, 3), dtype=np.int16)
+        base = base.repeat(EVAL_SIZE // grid, 1).repeat(EVAL_SIZE // grid, 2)
+        return (base + rng.integers(-12, 13, base.shape, dtype=np.int16)).clip(0, 255).astype(np.uint8)
+
+    np.savez(root / "generated.npz", images=images(8, 0, 256))
+    (root / "ref").mkdir()
+    with ThreadPoolExecutor(8) as pool:  # zlib, which takes most of the time, releases the GIL
+        list(pool.map(lambda i, image: write_png(str(root / "ref" / f"{i:04d}.png"), image),
+                      *zip(*enumerate(images(4, 64, 192)))))
+    (root / "captions.txt").write_text("".join(f"{CAPTIONS.split('|')[i % 4]}\n" for i in range(EVAL_IMAGES)))
+
+
+def numpy_metrics(gen_emb, ref_emb, text_emb, caption_rows) -> dict:
+    """CLIPScore and the Fréchet distance of the embeddings in numpy
+    float64, with the usual eps on both diagonals where a covariance is
+    near singular; ``regularised`` says whether it was."""
+    import numpy as np
+
+    g, r = np.asarray(gen_emb, np.float64), np.asarray(ref_emb, np.float64)
+    t = np.asarray(text_emb, np.float64)[caption_rows]
+    cos = (g * t).sum(-1) / np.linalg.norm(g, axis=-1) / np.linalg.norm(t, axis=-1)
+    c1, c2 = np.cov(g, rowvar=False), np.cov(r, rowvar=False)
+    eps = 1e-6
+    regularised = min(np.linalg.eigvalsh(c1)[0], np.linalg.eigvalsh(c2)[0]) < eps
+    if regularised:
+        c1, c2 = c1 + eps * np.eye(len(c1)), c2 + eps * np.eye(len(c2))
+    w, v = np.linalg.eigh(c1)
+    root1 = (v * np.sqrt(w.clip(0.0))) @ v.T
+    inner = root1 @ c2 @ root1
+    tr_sqrt = np.sqrt(np.linalg.eigvalsh((inner + inner.T) / 2).clip(0.0)).sum()
+    diff = g.mean(0) - r.mean(0)
+    return {"clip_score": 100.0 * np.maximum(cos, 0.0).mean(), "regularised": regularised,
+            "frechet_clip_distance": max(diff @ diff + np.trace(c1) + np.trace(c2) - 2 * tr_sqrt, 0.0)}
+
+
+def phase_eval_cli(tmp: Path, samples: Path | None, card):
+    """(3): the evaluation CLI on both towers in f32 and bf16, its numbers
+    held to a numpy recomputation from the card's embeddings; then the
+    chain sample -> evaluate on phase 8's PNGs. Returns the two sets as
+    read, the distinct captions and each sample's caption row."""
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.eval import cli, clip_eval
+    from imagegenerator_tpu_torch.v2.clip import CLIP
+    from imagegenerator_tpu_torch.v2.engine import frozen
+    from imagegenerator_tpu_torch.v2.generate import load_clip
+    from imagegenerator_tpu_torch.v2.tokenizer import open_tokenizer
+
+    log(f"phase 10: the evaluation CLI, full width, {EVAL_IMAGES} generated images (.npz) against "
+        f"{EVAL_IMAGES} reference PNGs, {EVAL_SIZE} px, --batch {EVAL_BATCH}")
+    t0 = time.perf_counter()
+    write_eval_sets(tmp)
+    generated, ref = cli.load_image_set(str(tmp / "generated.npz")), cli.load_image_set(str(tmp / "ref"))
+    captions = (tmp / "captions.txt").read_text().split("\n")[:-1]
+    unique = list(dict.fromkeys(captions))
+    rows = np.array([unique.index(c) for c in captions])
+    log(f"  sets written and read back in {time.perf_counter() - t0:.1f} s")
+    # the CLI's defaults in a fresh process: TF32 off in products, on in cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    keys = {"n_samples", "clip_model", "real_weights", "clip_score", "n_ref", "frechet_clip_distance"}
+    for name, pt in (("ViT-B/32", "ViT-B-32.pt"), ("RN50", "RN50.pt")):
+        for dtype in ("f32", "bf16"):
+            argv = ["--samples", str(tmp / "generated.npz"), "--ref", str(tmp / "ref"), "--captions",
+                    f"@{tmp / 'captions.txt'}", "-m", name, "--clip_checkpoint", str(tmp / pt),
+                    "--batch", str(EVAL_BATCH), "--dtype", dtype]
+            t0 = time.perf_counter()
+            result = json.loads(run_cli(cli.main, argv).strip().splitlines()[-1])
+            seconds = time.perf_counter() - t0
+            numbers = [result["clip_score"], result["frechet_clip_distance"]]
+            if (set(result) != keys or result["n_samples"] != EVAL_IMAGES or result["n_ref"] != EVAL_IMAGES
+                    or result["clip_model"] != name or result["real_weights"] is not True
+                    or not all(map(np.isfinite, numbers)) or not 0.0 <= result["clip_score"] <= 100.0):
+                raise AssertionError(f"{name} {dtype}: {result}")
+            cfg, state = load_clip(name, str(tmp / pt))
+            model = frozen(CLIP, cfg, state, torch.bfloat16 if dtype == "bf16" else None, device="cuda")
+            tokens = open_tokenizer(None, cfg.context_length, cfg.vocab_size)(unique)
+            want = numpy_metrics(clip_eval.image_embeddings(model, generated, EVAL_BATCH),
+                                 clip_eval.image_embeddings(model, ref, EVAL_BATCH),
+                                 clip_eval.text_embeddings(model, tokens, EVAL_BATCH), rows)
+            del model
+            for key, limit in EVAL_ROUNDING.items():
+                err = abs(result[key] - want[key])
+                ok = err <= EVAL_RECOMPUTE_TOL * abs(want[key]) + limit
+                log(f"  {name} {dtype}: {key} {result[key]} against numpy's {want[key]:.9g} from the card's "
+                    f"embeddings: {err:.3e} (limit {EVAL_RECOMPUTE_TOL:g} relative + {limit:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {dtype}: the CLI's {key} is not its embeddings'")
+            # n samples span at most n - 1 dimensions: a covariance of no more
+            # samples than dimensions is singular and takes the eps
+            if EVAL_IMAGES <= cfg.embed_dim and not want["regularised"]:
+                raise AssertionError(f"{name}: no eps regularisation with {EVAL_IMAGES} samples in "
+                                     f"{cfg.embed_dim} dimensions")
+            log(f"  {name} {dtype}: the CLI in {seconds:.1f} s wall [{card}]; {cfg.embed_dim} dimensions, "
+                f"{EVAL_IMAGES} samples: eps regularisation {'taken' if want['regularised'] else 'not needed'}")
+    if samples is None:
+        log("  phase 8's samples are not here (--only eval): the chain sample -> evaluate is left out")
+        return generated, ref, unique, rows
+    pngs = sorted(samples.glob("*.png"))
+    (tmp / "sample_captions.txt").write_text("".join(png_comment(p) + "\n" for p in pngs))
+    result = json.loads(run_cli(cli.main, [
+        "--samples", str(samples), "--captions", f"@{tmp / 'sample_captions.txt'}",
+        "--clip_checkpoint", str(tmp / "ViT-B-32.pt")]).strip().splitlines()[-1])
+    if result["n_samples"] != len(pngs) or not 0.0 <= result["clip_score"] <= 100.0:
+        raise AssertionError(f"scoring phase 8's samples: {result}")
+    log(f"  the chain sample -> evaluate: phase 8's {len(pngs)} EMA samples against their captions, "
+        f"CLIPScore {result['clip_score']} (ViT-B/32, random weights)")
+    return generated, ref, unique, rows
+
+
+def run_one_and_ranks(tmp: Path, module: str, one_argv, rank_argv, what: str):
+    """``python -m module one_argv`` and ``torchrun --standalone
+    --nproc_per_node 2 -m module rank_argv``, both under ``RANKS_ENV``:
+    the one process's stdout, each rank's and the two wall times."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **RANKS_ENV)
+    t0 = time.perf_counter()
+    one = subprocess.run([sys.executable, "-m", module, *one_argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=DP_TIMEOUT)
+    one_s = time.perf_counter() - t0
+    if one.returncode:
+        for line in (one.stdout + one.stderr).splitlines()[-30:]:
+            log(f"    | {line}")
+        raise AssertionError(f"{what}, one process: exit {one.returncode}")
+    logs = tmp / f"torchrun_{what.replace(' ', '_')}"
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                           str(DP_WORLD), "--log_dir", str(logs), "--redirects", "3", "-m", module, *rank_argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    outs = {int(p.parent.name): p.read_text() for p in logs.rglob("stdout.log")}
+    if done.returncode or sorted(outs) != list(range(DP_WORLD)):
+        for line in (done.stdout + done.stderr).splitlines()[-30:]:
+            log(f"    | {line}")
+        for p in logs.rglob("stderr.log"):
+            for line in p.read_text().splitlines()[-15:]:
+                log(f"    | {p.parent.name}: {line}")
+        raise AssertionError(f"{what}, torchrun: exit {done.returncode}, rank logs {sorted(outs)}")
+    for r, out in sorted(outs.items()):
+        if f"[dp] rank {r} of {DP_WORLD}" not in out:
+            raise AssertionError(f"{what}: rank {r} did not join the group")
+        log(f"    | rank {r}: {next(l for l in out.splitlines() if l.startswith('[dp]'))}")
+    return one.stdout, outs, one_s, ranks_s
+
+
+def loss_lines(text: str) -> list:
+    """(what the line is, its numbers) of each loss and progress line of
+    the v2 CLI."""
+    out = []
+    for line in text.splitlines():
+        if " loss: " in line:
+            head, rest = line.split(" loss: ")
+            out.append((head, [float(v) for v in re.findall(r"-?[\d.]+(?:e[-+]?\d+)?|nan|inf", rest)]))
+    return out
+
+
+def batch_split_witness(tmp: Path, sets) -> None:
+    """How far the batch size alone moves the eval numbers: RN50's
+    embeddings at ``EVAL_BATCH`` and at each rank's share of it, in this
+    process with TF32 off, through ``numpy_metrics``. Printed, not held."""
+    import torch
+
+    from imagegenerator_tpu_torch.eval import clip_eval
+    from imagegenerator_tpu_torch.v2.clip import CLIP
+    from imagegenerator_tpu_torch.v2.engine import frozen
+    from imagegenerator_tpu_torch.v2.generate import load_clip
+    from imagegenerator_tpu_torch.v2.tokenizer import open_tokenizer
+
+    generated, ref, unique, rows = sets
+    set_tf32(False)
+    cfg, state = load_clip("RN50", str(tmp / "RN50.pt"))
+    model = frozen(CLIP, cfg, state, device="cuda")
+    text = clip_eval.text_embeddings(model, open_tokenizer(None, cfg.context_length, cfg.vocab_size)(unique))
+    got = {b: numpy_metrics(clip_eval.image_embeddings(model, generated, b),
+                            clip_eval.image_embeddings(model, ref, b), text, rows)
+           for b in (EVAL_BATCH, EVAL_BATCH // DP_WORLD)}
+    a, b = got[EVAL_BATCH], got[EVAL_BATCH // DP_WORLD]
+    log("  witness, one process, TF32 off, RN50 embedded at batch "
+        f"{EVAL_BATCH} against {EVAL_BATCH // DP_WORLD}: " + ", ".join(
+            f"{k} {a[k]:.9g} against {b[k]:.9g} ({abs(a[k] - b[k]) / abs(a[k]):.3e} relative)"
+            for k in ("clip_score", "frechet_clip_distance")))
+
+
+def v2_split_witness(vq_state, rn_sd, gen) -> None:
+    """How far the batch size alone moves the v2 losses: one process, TF32
+    off, the batch-4 engine against two ``shard=(rank, 2)`` engines over
+    phase (4)'s 3 iterations, from the same latent and seeds. Printed,
+    not held."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIPConfig
+    from imagegenerator_tpu_torch.v2.engine import GenerateEngine
+
+    set_tf32(False)
+    vq_cfg, _ = v2_configs()
+
+    def engine(shard=(0, 1)):
+        return GenerateEngine(vq_cfg, CLIPConfig.rn50(), vq_state, rn_sd, warp_kernel=True, shard=shard,
+                              device="cuda")
+
+    whole = engine()
+    batch = len(RANKS_PROMPTS)
+    z0 = whole.random_token_latent(gen, batch, V2_IMAGE // 16, V2_IMAGE // 16)
+    prompts = v2_prompts(whole, batch)
+    _, want = whole.chain(whole.init_state(z0), V2_RN_ITERS, SEED, *prompts)
+    del whole
+    got = []
+    for r in range(DP_WORLD):
+        rows = slice(r * batch // DP_WORLD, (r + 1) * batch // DP_WORLD)
+        half = engine((r, DP_WORLD))
+        got.append(half.chain(half.init_state(z0[rows]), V2_RN_ITERS, SEED, *(p[rows] for p in prompts))[1])
+        del half
+    got = torch.cat(got, dim=1)
+    live = want.abs() > 0  # padded prompts carry no loss
+    rel = [((got[i] - want[i]).abs()[live[i]] / want[i].abs()[live[i]]).max().item() for i in range(V2_RN_ITERS)]
+    log(f"  witness, one process, TF32 off: the v2 losses of {DP_WORLD} engines of batch {batch // DP_WORLD} "
+        f"against one of batch {batch}, largest relative difference by iteration "
+        f"{', '.join(f'{v:.3e}' for v in rel)}")
+
+
+def phase_ranks(tmp: Path, card) -> None:
+    """(4): the evaluation CLI with ``--dp 2`` and the v2 CLI at batch 4
+    over two ranks, each against one process."""
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.utils.png import decode_png
+
+    n = torch.cuda.device_count()
+    nccl = n >= DP_WORLD
+    log(f"phase 10: two ranks ({'a card each over NCCL' if nccl else 'both on cuda:0 over gloo'}) against one "
+        "process, TF32 off")
+    shared = [] if nccl else ["--device", "cuda:0"]
+    argv = ["--samples", str(tmp / "generated.npz"), "--ref", str(tmp / "ref"), "--captions",
+            f"@{tmp / 'captions.txt'}", "-m", "RN50", "--clip_checkpoint", str(tmp / "RN50.pt"),
+            "--batch", str(EVAL_BATCH)]
+    one, outs, one_s, ranks_s = run_one_and_ranks(tmp, "imagegenerator_tpu_torch.eval.cli", argv,
+                                                  argv + ["--dp", str(DP_WORLD)] + shared, "eval")
+    want = json.loads(one.strip().splitlines()[-1])
+    got = json.loads(outs[0].strip().splitlines()[-1])
+    if any(l.startswith("{") for l in outs[1].splitlines()) or set(got) != set(want):
+        raise AssertionError(f"eval over ranks printed {got}; rank 1 {outs[1][-300:]!r}")
+    for key, value in want.items():
+        ok = (abs(got[key] - value) <= EVAL_DP_TOL * abs(value)) if isinstance(value, float) else got[key] == value
+        if not ok:
+            raise AssertionError(f"eval --dp {DP_WORLD}: {key} {got[key]}, one process {value}")
+    log(f"  eval --dp {DP_WORLD}: {got} equals one process's (floats to {EVAL_DP_TOL:g} relative); "
+        f"{ranks_s:.1f} s against {one_s:.1f} s [{card}]")
+
+    (tmp / "prompts.txt").write_text("\n".join(RANKS_PROMPTS) + "\n")
+    dirs = {side: tmp / f"v2_{side}" for side in ("one", "ranks")}
+    common = ["--prompts_file", str(tmp / "prompts.txt"), "-i", str(V2_RN_ITERS), "-se", str(V2_EVERY),
+              "-sd", str(SEED), "-m", "RN50", "--clip_checkpoint", str(tmp / "RN50.pt"),
+              "-conf", str(tmp / "vqgan.yaml"), "-ckpt", str(tmp / "vqgan.ckpt")]
+    for d in dirs.values():
+        d.mkdir()
+    one, outs, one_s, ranks_s = run_one_and_ranks(
+        tmp, "imagegenerator_tpu_torch.v2.generate", common + ["-o", str(dirs["one"] / "o.png")],
+        common + ["-o", str(dirs["ranks"] / "o.png")] + (["-cd", "cuda:0"] if not nccl else []), "v2")
+    want, got = loss_lines(one), loss_lines(outs[0])
+    worst = 0.0
+    if [w[0] for w in want] != [g[0] for g in got] or len(want) != 4 * (V2_RN_ITERS // V2_EVERY + 1) + 1:
+        raise AssertionError(f"loss lines: one process {[w[0] for w in want]}, rank 0 {[g[0] for g in got]}")
+    for (_, a), (_, b) in zip(got, want):
+        worst = max(worst, max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b)))
+    if worst > V2_RANKS_TOL["losses"] or loss_lines(outs[1]):
+        for (head, a), (_, b) in zip(got, want):
+            log(f"    {head} rank 0 {a} one process {b}")
+        raise AssertionError(f"v2 over ranks: losses {worst:.3e} relative from one process's, or rank 1 printed")
+    pixels = 0
+    for b in range(len(RANKS_PROMPTS)):
+        a, c = (decode_png((dirs[side] / f"o_{b}.png").read_bytes()).astype(np.int16) for side in ("ranks", "one"))
+        pixels = max(pixels, int(np.abs(a - c).max()))
+    if pixels > V2_RANKS_TOL["pixels"]:
+        raise AssertionError(f"v2 over ranks: PNG pixels {pixels} of 255 from one process's")
+    log(f"  v2 at batch {len(RANKS_PROMPTS)} over {DP_WORLD} ranks: {len(got)} loss lines within {worst:.3e} "
+        f"relative of one process's (limit {V2_RANKS_TOL['losses']:g}), PNG pixels within {pixels} of 255 "
+        f"(limit {V2_RANKS_TOL['pixels']}); {ranks_s:.1f} s against {one_s:.1f} s [{card}]")
+
+
+def phase_eval_times(vit_sd, rn_sd, card) -> None:
+    """(5): the towers' embedding rate at ``EVAL_BATCH`` from
+    ``EVAL_SIZE`` px images on the card (the resize included), under the
+    CLI's defaults, and the device's busy share over one batch."""
+    import torch
+
+    from imagegenerator_tpu_torch.eval.clip_eval import prepare_images
+    from imagegenerator_tpu_torch.v2.clip import CLIP, CLIPConfig
+    from imagegenerator_tpu_torch.v2.engine import frozen
+
+    log(f"phase 10: eval embedding times on {card}, batch {EVAL_BATCH} from {EVAL_SIZE} px")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    x = torch.rand((EVAL_BATCH, EVAL_SIZE, EVAL_SIZE, 3), generator=torch.Generator().manual_seed(SEED)).cuda()
+    for name, cfg, sd in (("ViT-B/32", CLIPConfig.vit_b32(), vit_sd), ("RN50", CLIPConfig.rn50(), rn_sd)):
+        for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+            model = frozen(CLIP, cfg, sd, dtype, device="cuda")
+
+            @torch.no_grad()
+            def embed():
+                return model.encode_image(prepare_images(x, cfg.image_resolution, dtype))
+
+            embed()
+            ms = wall_ms(embed)
+            host_ms, events = profiled(embed, calls=1)
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            log(f"  {name} {tag}: {ms:.3f} ms a batch, {EVAL_BATCH * 1e3 / ms:.1f} images/s; one profiled batch: "
+                f"device busy {busy:.3f} of {host_ms:.3f} ms ({100 * busy / host_ms:.1f}%), "
+                f"{sum(e.count for e in events)} kernels [{card}]")
+            del model
+
+
+def phase_clip_eval(vq_argmin, scanline_lerp, gen, card, samples: Path | None = None):
+    """Phase 10: the CLIP family and evaluation. Returns the launches of
+    one RN50 v2 step."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIPConfig
+
+    log(f"phase 10: the CLIP family and evaluation, full width, on {card}")
+    t0 = time.perf_counter()
+    rn_sd = seeded_clip_state(CLIPConfig.rn50(), SEED)
+    vit_sd = seeded_clip_state(CLIPConfig.vit_b32(), SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_published(rn_sd, tmp / "RN50.pt")
+        save_published(vit_sd, tmp / "ViT-B-32.pt")
+        phase_rn50_towers(rn_sd)
+        step_launches, vq_state = phase_rn50_v2(tmp, rn_sd, vq_argmin, scanline_lerp, gen, card)
+        torch.cuda.empty_cache()
+        sets = phase_eval_cli(tmp, samples, card)
+        batch_split_witness(tmp, sets)
+        del sets
+        v2_split_witness(vq_state, rn_sd, gen)
+        del vq_state
+        torch.cuda.empty_cache()  # the rank processes share the card
+        phase_ranks(tmp, card)
+    phase_eval_times(vit_sd, rn_sd, card)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s in all")
+    return step_launches
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "d2-trace", "tiny-trace"],
+    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "d2-trace", "tiny-trace"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
@@ -3024,6 +3669,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"  host: {host_description()}")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -3063,6 +3709,8 @@ def main() -> int:
         phase_v2(vq_argmin, scanline_lerp, gen, card)
     if args.only == "dp":
         phase_dp(card)
+    if args.only == "eval":
+        phase_clip_eval(vq_argmin, scanline_lerp, gen, card)
     if args.only == "d2-trace":
         phase_d2_trace(card)
     if args.only == "tiny-trace":
@@ -3081,15 +3729,19 @@ def main() -> int:
     del flat, batch, noise
     train_launches, train_t = phase_train(attention, layernorm, gen, card)
     v2_launches, lanczos_launches, v2_errs, v2_t = phase_v2(vq_argmin, scanline_lerp, gen, card)
-    train2_launches, _, _ = phase_train2(attention, layernorm, gen, card)
-    torch.cuda.empty_cache()  # the rank processes share the card
-    phase_dp(card)
+    with tempfile.TemporaryDirectory() as kept:
+        samples = Path(kept) / "samples"  # phase 8's, which phase 10 scores
+        train2_launches, _, _ = phase_train2(attention, layernorm, gen, card, samples_to=samples)
+        torch.cuda.empty_cache()  # the rank processes share the card
+        phase_dp(card)
+        rn50_launches = phase_clip_eval(vq_argmin, scanline_lerp, gen, card, samples)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the
     # stage-1 steps, the v2 CLI's first run); errors, times and bounds at
     # that path's shape. stage2_step_launches: the same count over phase 8's
-    # four counted tokens-route steps, which run the two forward kernels
+    # four counted tokens-route steps, which run the two forward kernels;
+    # rn50_step_launches: one v2 step with the RN50 tower (phase 10)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
@@ -3123,16 +3775,18 @@ def main() -> int:
          "source": "imagegenerator_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/vq_kernel.py:81",
          "launches": v2_launches["vq_argmin"], "lanczos_256px_launches": lanczos_launches["vq_argmin"],
-         "max_abs_err": v2_errs["vq", VQ_SHAPE[0], "taming", "f32"][0], **v2_t["vq_argmin"]},
+         "rn50_step_launches": rn50_launches["vq_argmin"], "max_abs_err": v2_errs["vq", VQ_SHAPE[0], "taming", "f32"][0], **v2_t["vq_argmin"]},
         {"name": "scanline_lerp", "route": "triton",
          "source": "imagegenerator_tpu_torch/ops/kernels/scanline_lerp.py",
          "replaces": "imagegenerator_tpu/ops/pallas/scanline_lerp.py:105",
          "launches": v2_launches["scanline_lerp"],
-         "lanczos_256px_launches": lanczos_launches["scanline_lerp"], "max_abs_err": v2_errs["lerp"],
+         "lanczos_256px_launches": lanczos_launches["scanline_lerp"],
+         "rn50_step_launches": rn50_launches["scanline_lerp"], "max_abs_err": v2_errs["lerp"],
          **v2_t["scanline_lerp"]},
     ]
     for kernel in kernels:
-        counts = [kernel[k] for k in ("launches", "stage2_step_launches", "lanczos_256px_launches") if k in kernel]
+        counts = [kernel[k] for k in ("launches", "stage2_step_launches", "lanczos_256px_launches",
+                                      "rn50_step_launches") if k in kernel]
         if min(counts) < 1:
             raise AssertionError(f"{kernel['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))

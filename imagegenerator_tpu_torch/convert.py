@@ -300,9 +300,8 @@ def _vqgan_entries(c):
 
 
 def _clip_entries(c):
-    """(OpenAI name, flax path, layout) of every CLIP (ViT) tensor."""
-    if c.is_resnet:
-        raise NotImplementedError("the ModifiedResNet CLIP towers are not ported")
+    """(OpenAI name, flax path, layout) of every CLIP tensor, for a ViT
+    or a ModifiedResNet image tower."""
     out = []
 
     def dense(t, f):
@@ -320,13 +319,36 @@ def _clip_entries(c):
         dense(f"{t}.mlp.c_fc", f + ("mlp_fc",))
         dense(f"{t}.mlp.c_proj", f + ("mlp_proj",))
 
-    out.append(("visual.conv1.weight", ("visual", "conv1", "kernel"), "conv"))
-    for name in ("class_embedding", "positional_embedding", "proj"):
-        out.append((f"visual.{name}", ("visual", name), None))
-    norm("visual.ln_pre", ("visual", "ln_pre"))
-    norm("visual.ln_post", ("visual", "ln_post"))
-    for i in range(c.vision_layers):
-        block(f"visual.transformer.resblocks.{i}", ("visual", f"block_{i}"))
+    def conv_bn(t, f, conv, bn, flax_conv=None, flax_bn=None):
+        out.append((f"{t}.{conv}.weight", f + (flax_conv or conv, "kernel"), "conv"))
+        for torch_name, flax_name in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                                      ("running_var", "var")):
+            out.append((f"{t}.{bn}.{torch_name}", f + (flax_bn or bn, flax_name), None))
+
+    if c.is_resnet:
+        for i in (1, 2, 3):
+            conv_bn("visual", ("visual",), f"conv{i}", f"bn{i}")
+        w, in_ch = c.vision_width, c.vision_width
+        for stage, blocks in enumerate(c.vision_layers):
+            planes = w * 2 ** stage
+            for b in range(blocks):
+                t, f = f"visual.layer{stage + 1}.{b}", ("visual", f"layer{stage + 1}_{b}")
+                for i in (1, 2, 3):
+                    conv_bn(t, f, f"conv{i}", f"bn{i}")
+                if (stage > 0 and b == 0) or in_ch != 4 * planes:
+                    conv_bn(t, f, "downsample.0", "downsample.1", "downsample_conv", "downsample_bn")
+                in_ch = 4 * planes
+        out.append(("visual.attnpool.positional_embedding", ("visual", "attnpool", "positional_embedding"), None))
+        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            dense(f"visual.attnpool.{name}", ("visual", "attnpool", name))
+    else:
+        out.append(("visual.conv1.weight", ("visual", "conv1", "kernel"), "conv"))
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            out.append((f"visual.{name}", ("visual", name), None))
+        norm("visual.ln_pre", ("visual", "ln_pre"))
+        norm("visual.ln_post", ("visual", "ln_post"))
+        for i in range(c.vision_layers):
+            block(f"visual.transformer.resblocks.{i}", ("visual", f"block_{i}"))
     out.append(("token_embedding.weight", ("text", "token_embedding", "embedding"), None))
     out.append(("positional_embedding", ("text", "positional_embedding"), None))
     norm("ln_final", ("text", "ln_final"))

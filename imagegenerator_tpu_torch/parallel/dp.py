@@ -14,15 +14,23 @@ of one step. Nothing else is reduced: BatchNorm statistics stay per
 replica, as in the JAX step (no SyncBatchNorm), and rank 0's are the ones
 a checkpoint keeps.
 
+The v2 CLI and the evaluation CLI split a batch over the ranks instead
+(``torchrun`` with ``WORLD_SIZE`` > 1): ``gather_rows`` brings every
+rank's rows to every rank for the one that writes the outputs, and
+``all_reduce_sum`` adds float64 sums (the Fréchet moments, the score
+sums) without falling to f32.
+
 Without an initialised process group every function here is the single
-process's: ``world() == 1``, ``rank() == 0``, ``all_reduce_mean`` and
-``barrier`` do nothing and never touch ``torch.distributed``.
+process's: ``world() == 1``, ``rank() == 0``, ``all_reduce_mean``,
+``all_reduce_sum``, ``gather_rows`` and ``barrier`` do nothing that
+touches ``torch.distributed``.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -154,14 +162,52 @@ def barrier() -> None:
         dist.barrier()
 
 
+def _collective_device() -> torch.device:
+    """Where this rank's collectives run: its card under NCCL, which
+    cannot reach host memory, else the CPU."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def gather_rows(a) -> np.ndarray:
+    """Every rank's ``a`` (a tensor or an array of the same shape on each
+    rank) concatenated along its first axis in rank order, as a numpy
+    array on every rank. At world size 1, ``a`` as numpy."""
+    t = a.detach() if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    if world() == 1:
+        return t.cpu().numpy()
+    t = t.to(_collective_device()).contiguous()
+    parts = [torch.empty_like(t) for _ in range(world())]
+    dist.all_gather(parts, t)
+    return torch.cat(parts).cpu().numpy()
+
+
+def all_reduce_sum(*arrays) -> list:
+    """The element-wise sums over the ranks of float64 ``arrays`` (numpy,
+    any shapes), in one ``all_reduce`` of one float64 buffer. At world
+    size 1, copies of ``arrays``."""
+    flat = np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in arrays])
+    if world() > 1:
+        t = torch.from_numpy(flat).to(_collective_device())
+        dist.all_reduce(t)
+        flat = t.cpu().numpy()
+    out, at = [], 0
+    for a in arrays:
+        shape = np.shape(a)
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(flat[at:at + n].reshape(shape).copy())
+        at += n
+    return out
+
+
 def check_same_on_all_ranks(value: int, what: str) -> None:
     """Raise on every rank unless each holds the same ``value`` (a step
     count: a rank that took one step more than another would hang in a
     collective)."""
     if world() == 1:
         return
-    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
-    t = torch.tensor([value, -value], dtype=torch.int64, device=dev)
+    t = torch.tensor([value, -value], dtype=torch.int64, device=_collective_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     high, low = int(t[0]), -int(t[1])
     if high != low:

@@ -20,7 +20,7 @@ def get_parser(default_image_size: int = 128) -> argparse.ArgumentParser:
                    default=[default_image_size, default_image_size],
                    dest="size", help="Output image width and height (pixels)")
     p.add_argument("-m", "--clip_model", type=str, default="ViT-B/32",
-                   dest="clip_model", help="CLIP model variant (ViT-B/32, ViT-B/16, ViT-L/14)")
+                   dest="clip_model", help="CLIP model variant (ViT-B/32, ViT-B/16, ViT-L/14, RN50, RN101, RN50x4, ...)")
     p.add_argument("-conf", "--vqgan_config", type=str,
                    default="checkpoints/vqgan_imagenet_f16_16384.yaml",
                    dest="vqgan_config", help="Path to the VQGAN yaml config")
@@ -48,10 +48,12 @@ def get_parser(default_image_size: int = 128) -> argparse.ArgumentParser:
     p.add_argument("--prompts_file", type=str, default=None,
                    dest="prompts_file",
                    help="File with one prompt set per line; generates one "
-                        "image per line as one batch (outputs <stem>_<i>.png)")
+                        "image per line as one batch (outputs <stem>_<i>.png), "
+                        "split over the ranks under torchrun")
     p.add_argument("--profile_dir", type=str, default=None,
                    dest="profile_dir",
-                   help="Not ported yet: raises NotImplementedError")
+                   help="Write a torch.profiler trace of the optimisation loop "
+                        "to DIR/trace_rank<R>.json")
     p.add_argument("--state", type=str, default=None, dest="state_path",
                    help="Path of an npz resume snapshot: the latent and the "
                         "optimizer state are saved here at every --save_every "

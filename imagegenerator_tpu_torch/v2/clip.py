@@ -1,27 +1,38 @@
-"""CLIP (ViT image tower + causal text transformer) — counterpart of
-``imagegenerator_tpu/v2/clip.py``.
+"""CLIP (a ViT or a ModifiedResNet image tower + a causal text
+transformer) — counterpart of ``imagegenerator_tpu/v2/clip.py``.
 
-  * visual: stride-``patch`` conv embed (no bias) -> prepend class token
-    -> learned positional embedding -> pre-LN transformer with QuickGELU
-    MLPs -> ``ln_post`` on the class token -> projection to ``embed_dim``.
+  * visual, ViT: stride-``patch`` conv embed (no bias) -> prepend class
+    token -> learned positional embedding -> pre-LN transformer with
+    QuickGELU MLPs -> ``ln_post`` on the class token -> projection to
+    ``embed_dim``.
+  * visual, ModifiedResNet (RN50, RN101, RN50x4, RN50x16, RN50x64): a
+    stem of three 3x3 convolutions and a 2x2 average pool, four stages of
+    bottlenecks that downsample by an average pool after ``conv2``, and
+    an attention pool whose one query is the mean token, projected to
+    ``embed_dim``. BatchNorm is frozen (eval-mode statistics).
   * text: token embedding -> positional embedding -> causally masked
     transformer -> ``ln_final`` -> features at the EOT token (argmax of
     the token ids) -> text projection.
 
 Parameter names are OpenAI's (``visual.conv1.weight``,
 ``visual.transformer.resblocks.0.attn.in_proj_weight``,
+``visual.layer2.0.downsample.1.running_var``,
+``visual.attnpool.q_proj.weight``,
 ``transformer.resblocks.0.mlp.c_fc.weight``, ``text_projection``), so a
-published ``state_dict`` loads directly (its ``logit_scale`` and the
-scalar shape entries dropped). Images are NHWC, CLIP-normalised.
+published ``state_dict`` loads directly (its ``logit_scale``, the scalar
+shape entries and BatchNorm's ``num_batches_tracked`` dropped). Images are
+NHWC, CLIP-normalised; the ResNet tower runs its convolutions on the
+same memory as NCHW tensors with ``channels_last`` strides.
 
 Dtype rules are the JAX module's: parameters are f32; Dense and
 LayerNorm compute in ``dtype`` (LayerNorm's statistics in f32, its result
 in ``dtype``); attention logits and softmax are f32 and the
 probabilities are cast to v's dtype; the causal mask fills with the
-lowest finite f32, not -inf. The attention is plain PyTorch, as it is
-plain XLA in the JAX package. The ModifiedResNet image towers (RN50 ...)
-are not ported: building a ``CLIP`` from such a config raises
-``NotImplementedError``.
+lowest finite f32, not -inf; the frozen BatchNorm is the JAX module's
+folded affine, ``x * inv + shift`` with both factors made in f32 and cast
+to x's dtype. The attention, the convolutions and the pools are plain
+PyTorch (cuDNN and cuBLAS on the card), as they are plain XLA in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.ops.layers import Conv2d, Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +119,11 @@ class CLIPConfig:
 
 def clip_config_from_state_dict(sd: dict) -> CLIPConfig:
     """Infer the architecture from an OpenAI CLIP ``state_dict``, as
-    ``clip.build_model`` does (ViT towers; a ModifiedResNet tower's
-    config is inferred too, so that loading it can say what it is)."""
+    ``clip.build_model`` does, for a ViT or a ModifiedResNet image tower.
+    A ResNet's stage depths come from its ``visual.layer{1..4}.*`` keys,
+    its width from the stem (half the width), its resolution from the
+    attention pool's positional embedding (32 px per grid cell) and
+    ``embed_dim`` from ``attnpool.c_proj``."""
 
     def depth(prefix, part):
         return max(int(k.split(".")[part]) for k in sd if k.startswith(prefix)) + 1
@@ -289,21 +303,145 @@ class VisionTransformer(nn.Module):
         return x @ self.proj.to(x.dtype)
 
 
+class _FrozenBN(nn.Module):
+    """Eval-mode BatchNorm over NCHW channels (eps 1e-5) as the JAX
+    module's folded affine: ``x * inv + shift``, ``inv = weight /
+    sqrt(var + eps)`` and ``shift = bias - mean * weight / sqrt(var +
+    eps)`` made in f32 and cast to x's dtype. Holds OpenAI's names:
+    ``weight``, ``bias`` and the buffers ``running_mean``, ``running_var``."""
+
+    def __init__(self, width, *, device=None):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.ones(width, **f32))
+        self.bias = nn.Parameter(torch.zeros(width, **f32))
+        self.register_buffer("running_mean", torch.zeros(width, **f32))
+        self.register_buffer("running_var", torch.ones(width, **f32))
+
+    def forward(self, x):
+        root = torch.sqrt(self.running_var + 1e-5)
+        inv = (self.weight / root).to(x.dtype)
+        shift = (self.bias - self.running_mean * self.weight / root).to(x.dtype)
+        return x * inv[:, None, None] + shift[:, None, None]
+
+
+def _conv_bn(in_ch, out_ch, k, dtype, kw, stride=1):
+    return (Conv2d(in_ch, out_ch, k, stride, k // 2, use_bias=False, dtype=dtype, **kw),
+            _FrozenBN(out_ch, device=kw["device"]))
+
+
+class _Bottleneck(nn.Module):
+    """CLIP's bottleneck: 1x1, 3x3, 1x1 convolutions, each with a frozen
+    BN; a stride is an average pool after ``conv2`` (anti-aliased
+    downsampling), and the shortcut, where the stride or the width
+    changes, is an average pool, a 1x1 convolution and a BN, named
+    ``downsample.0`` and ``downsample.1`` as in OpenAI's model (whose pool,
+    with no parameters, is its entry ``-1``)."""
+
+    EXPANSION = 4
+
+    def __init__(self, in_ch, planes, stride, dtype, kw):
+        super().__init__()
+        out_ch = planes * self.EXPANSION
+        self.stride = stride
+        self.conv1, self.bn1 = _conv_bn(in_ch, planes, 1, dtype, kw)
+        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, dtype, kw)
+        self.conv3, self.bn3 = _conv_bn(planes, out_ch, 1, dtype, kw)
+        self.downsample = None
+        if stride > 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(*_conv_bn(in_ch, out_ch, 1, dtype, kw))
+
+    def _pool(self, x):
+        return F.avg_pool2d(x, self.stride) if self.stride > 1 else x
+
+    def forward(self, x):
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn3(self.conv3(self._pool(h)))
+        shortcut = x if self.downsample is None else self.downsample(self._pool(x))
+        return F.relu(h + shortcut)
+
+
+class _AttentionPool2d(nn.Module):
+    """CLIP's attention pool: the feature map's tokens with their mean
+    prepended, plus a learned positional embedding; one multi-head
+    attention whose only query is the mean token (so one matrix product
+    per head, no attention kernel); ``c_proj`` of its context to
+    ``output_dim``. Logits and softmax in f32, the probabilities cast to
+    v's dtype."""
+
+    def __init__(self, grid, width, heads, output_dim, dtype, kw):
+        super().__init__()
+        self.heads = heads
+        self.positional_embedding = _normal((grid * grid + 1, width), width ** -0.5, **kw)
+        self.q_proj, self.k_proj, self.v_proj = (Dense(width, width, dtype=dtype, **kw) for _ in range(3))
+        self.c_proj = Dense(width, output_dim, dtype=dtype, **kw)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(B, H * W, C)  # a view of channels_last memory
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        x = x + self.positional_embedding.to(x.dtype)
+        hd = C // self.heads
+        q = self.q_proj(x[:, :1]).reshape(B, 1, self.heads, hd).transpose(1, 2)
+        k = self.k_proj(x).reshape(B, -1, self.heads, hd).transpose(1, 2)
+        v = self.v_proj(x).reshape(B, -1, self.heads, hd).transpose(1, 2)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)  # (B, heads, 1, T)
+        ctx = torch.matmul(attn, v).reshape(B, C)
+        return self.c_proj(ctx)
+
+
+class ModifiedResNet(nn.Module):
+    """CLIP's ResNet image tower: the stem (three 3x3 convolutions, the
+    first with stride 2, widths w / 2, w / 2, w, each with a frozen BN and
+    a ReLU, then a 2x2 average pool), four stages of bottlenecks
+    (``layer1`` .. ``layer4``, widths w, 2w, 4w, 8w before the 4x
+    expansion; the first block of stages 2-4 has stride 2) and the
+    attention pool over the (resolution / 32)^2 grid, 32 w wide."""
+
+    def __init__(self, config: CLIPConfig, dtype=None, *, device=None, generator=None):
+        super().__init__()
+        c = config
+        kw = dict(device=device, generator=generator)
+        w = c.vision_width
+        self.conv1, self.bn1 = _conv_bn(3, w // 2, 3, dtype, kw, stride=2)
+        self.conv2, self.bn2 = _conv_bn(w // 2, w // 2, 3, dtype, kw)
+        self.conv3, self.bn3 = _conv_bn(w // 2, w, 3, dtype, kw)
+        in_ch = w
+        for stage, blocks in enumerate(c.vision_layers):
+            planes = w * 2 ** stage
+            layer = []
+            for b in range(blocks):
+                stride = 2 if stage > 0 and b == 0 else 1
+                layer.append(_Bottleneck(in_ch, planes, stride, dtype, kw))
+                in_ch = planes * _Bottleneck.EXPANSION
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.n_stages = len(c.vision_layers)
+        self.attnpool = _AttentionPool2d(c.image_resolution // 32, w * 32, c.vision_heads, c.embed_dim,
+                                         dtype, kw)
+
+    def forward(self, images):
+        """images ``(B, R, R, 3)``, CLIP-normalised -> ``(B, embed_dim)``."""
+        x = images.permute(0, 3, 1, 2)  # NCHW with channels_last strides
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)):
+            x = F.relu(bn(conv(x)))
+        x = F.avg_pool2d(x, 2)
+        for stage in range(self.n_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return self.attnpool(x)
+
+
 class CLIP(nn.Module):
     """``encode_image`` and ``encode_text``; the text tower's modules sit
     at the top level, as in OpenAI's model."""
 
     def __init__(self, config: CLIPConfig, dtype=None, *, device=None, generator=None):
         super().__init__()
-        if config.is_resnet:
-            raise NotImplementedError(
-                "the ModifiedResNet CLIP image towers (RN50, RN101, RN50x4, ...) are "
-                "not ported; use a ViT model"
-            )
         self.config = c = config
         self.dtype = dtype
         kw = dict(device=device, generator=generator)
-        self.visual = VisionTransformer(c, dtype, **kw)
+        self.visual = (ModifiedResNet if c.is_resnet else VisionTransformer)(c, dtype, **kw)
         self.token_embedding = nn.Embedding(c.vocab_size, c.text_width, device=device)
         with torch.no_grad():
             self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)

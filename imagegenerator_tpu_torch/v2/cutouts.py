@@ -129,6 +129,18 @@ class MakeCutouts:
             draws["noise"] = torch.randn((N, self.cut_size, self.cut_size, C), **kw)
         return draws
 
+    def take_images(self, draws: dict, start: int, stop: int) -> dict:
+        """The draws of images ``start .. stop - 1`` of the batch ``draws``
+        were made for: the crops (``u``, ``offs``) are every image's; every
+        other draw has a row per cutout, ``cutn`` rows an image."""
+
+        def rows(v):
+            if isinstance(v, dict):
+                return {k: rows(x) for k, x in v.items()}
+            return v[start * self.cutn:stop * self.cutn]
+
+        return {k: v if k in ("u", "offs") else rows(v) for k, v in draws.items()}
+
     def apply(self, draws: dict, images):
         """images ``(B, H, W, C)`` in [0, 1] -> ``(B * cutn, cut_size,
         cut_size, C)`` with the given draws. Cutout i of every batch

@@ -20,6 +20,13 @@ Randomness: each iteration's draws (``MakeCutouts.draw``) come from a
 and a resumed run equals an uninterrupted one. ``step(..., draws=...)``
 replays given draws instead.
 
+A batch split over ranks: an engine built with ``shard=(rank, world)``
+steps rows ``[rank * b, (rank + 1) * b)`` of a batch of ``world * b``
+(``b`` its latent's batch). It draws for the whole batch from the same
+generator and keeps its own rows (``MakeCutouts.take_images``), so the
+ranks together draw what one process draws. The loss is a sum over the
+batch's rows, so no rank needs another's gradient.
+
 ``GenerateEngine`` is an entry point: it builds on the card unless
 ``device`` names another, and raises when the card is wanted and absent.
 """
@@ -98,6 +105,21 @@ class LatentState:
         return new
 
 
+def frozen(cls, config, state: dict | None, dtype=None, *, device, generator=None, **kw):
+    """``cls(config, dtype, **kw)`` frozen in eval mode: loaded from
+    ``state`` (a ``state_dict`` of tensors or numpy arrays, held strictly
+    to the module's names; the module is built without storage and the
+    tensors assigned) or, for None, drawn at random from ``generator``."""
+    if state is None:
+        module = cls(config, dtype, device=device, generator=generator, **kw)
+    else:
+        module = cls(config, dtype, device="meta", **kw)
+        tensors = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).detach()
+                   .to(device, torch.float32) for k, v in state.items()}
+        module.load_state_dict(tensors, strict=True, assign=True)
+    return module.requires_grad_(False).eval()
+
+
 class GenerateEngine:
     """The frozen VQGAN and CLIP, the cutout sampler and the iteration.
 
@@ -106,27 +128,23 @@ class GenerateEngine:
     random init from ``generator``. ``warp_kernel`` and ``warp_split`` go
     to ``MakeCutouts`` (None: the environment's choice);
     ``use_vq_kernel`` to the codebook search (None: the kernel on the
-    card, False: the plain version)."""
+    card, False: the plain version). ``shard``: ``(rank, world)`` of a
+    batch split over ranks (see the module's docstring)."""
 
     def __init__(self, vqgan_config: VQGANConfig, clip_config: CLIPConfig,
                  vqgan_state: dict | None = None, clip_state: dict | None = None, *,
                  cutn: int = 32, cut_pow: float = 1.0, step_size: float = 0.1,
                  augment: bool = True, compute_dtype=None, warp_kernel: bool | None = None,
                  warp_split: bool | None = None, use_vq_kernel: bool | None = None,
-                 device=None, generator=None):
+                 shard: tuple[int, int] = (0, 1), device=None, generator=None):
         self.device = entry_device(device)
+        self.shard = shard
         self.vqgan_config, self.clip_config = vqgan_config, clip_config
         self.cutn, self.step_size, self.compute_dtype = cutn, step_size, compute_dtype
-        self.vqmodel = VQModel(
-            vqgan_config, compute_dtype, use_vq_kernel=use_vq_kernel,
-            **self._build_kw(vqgan_state, generator),
-        )
-        self.clip = CLIP(clip_config, compute_dtype, **self._build_kw(clip_state, generator))
-        for module, state in ((self.vqmodel, vqgan_state), (self.clip, clip_state)):
-            if state is not None:
-                tensors = {k: self._tensor(v) for k, v in state.items()}
-                module.load_state_dict(tensors, strict=True, assign=True)
-            module.requires_grad_(False).eval()
+        self.vqmodel = frozen(VQModel, vqgan_config, vqgan_state, compute_dtype, device=self.device,
+                              generator=generator, use_vq_kernel=use_vq_kernel)
+        self.clip = frozen(CLIP, clip_config, clip_state, compute_dtype, device=self.device,
+                           generator=generator)
         self.make_cutouts = MakeCutouts(
             cut_size=clip_config.image_resolution, cutn=cutn, cut_pow=cut_pow,
             augment=augment, warp_split=warp_split, warp_kernel=warp_kernel,
@@ -135,16 +153,6 @@ class GenerateEngine:
         # per-channel codebook bounds, which z is clamped to after a step
         self.z_min = codebook.amin(dim=0)[None, None, None, :]
         self.z_max = codebook.amax(dim=0)[None, None, None, :]
-
-    def _tensor(self, value):
-        t = value if torch.is_tensor(value) else torch.from_numpy(np.asarray(value))
-        return t.detach().to(self.device, torch.float32)
-
-    def _build_kw(self, state, generator):
-        # a module that is loaded right away is built without storage
-        if state is not None:
-            return dict(device="meta")
-        return dict(device=self.device, generator=generator)
 
     # ---------------------------------------------------------------- init
     @torch.no_grad()
@@ -181,6 +189,14 @@ class GenerateEngine:
         f = self.vqgan_config.f
         return (B, h * f, w * f, self.vqgan_config.out_ch)
 
+    def draw(self, generator, z) -> dict:
+        """The cutout draws of one iteration at ``z``: for the whole batch
+        of a split one, of which this engine keeps its rows."""
+        rank, world = self.shard
+        B, *image = self.image_shape(z)
+        draws = self.make_cutouts.draw(generator, (B * world, *image), self.device)
+        return draws if world == 1 else self.make_cutouts.take_images(draws, rank * B, (rank + 1) * B)
+
     # ---------------------------------------------------------------- loss
     def _losses(self, z, draws, embeds, weights, stops) -> torch.Tensor:
         """Per-(batch, prompt) loss matrix ``(B, P)`` from embeds
@@ -196,8 +212,7 @@ class GenerateEngine:
     def losses(self, z, generator, embeds, weights, stops) -> torch.Tensor:
         """The loss matrix at ``z`` with fresh draws, no gradient."""
         with torch.no_grad():
-            draws = self.make_cutouts.draw(generator, self.image_shape(z), self.device)
-            return self._losses(z, draws, embeds, weights, stops)
+            return self._losses(z, self.draw(generator, z), embeds, weights, stops)
 
     # ---------------------------------------------------------------- step
     def step(self, state: LatentState, generator, embeds, weights, stops, *, draws=None):
@@ -206,7 +221,7 @@ class GenerateEngine:
         ``generator`` (on the engine's device) unless ``draws`` gives
         them."""
         if draws is None:
-            draws = self.make_cutouts.draw(generator, self.image_shape(state.z), self.device)
+            draws = self.draw(generator, state.z)
         state.opt.zero_grad(set_to_none=True)
         losses = self._losses(state.z, draws, embeds, weights, stops)
         losses.sum().backward()
@@ -292,17 +307,22 @@ def save_latent_state(path: str, iters_done: int, state: LatentState) -> None:
     os.replace(tmp, path)
 
 
-def load_latent_state(path: str, template: LatentState):
+def load_latent_state(path: str, template: LatentState, shard: tuple[int, int] = (0, 1)):
     """Restore ``(iters_done, LatentState)`` written by
     ``save_latent_state`` of either package. ``template`` (build it with
     ``engine.init_state(z)`` for the same geometry) gives the shapes, the
     device and the step size; a file of another image size, batch or
-    optimizer raises ``ValueError``."""
+    optimizer raises ``ValueError``. With ``shard=(rank, world)`` the file
+    holds the whole batch of a split one, ``world`` times the template's,
+    and this rank's rows are restored."""
     with np.load(path) as d:
         iters_done = int(d["iters_done"])
         n = int(d["n_leaves"])
         loaded = [d[f"leaf_{i}"] for i in range(n)]
-    want = [tuple(template.z.shape), (), tuple(template.z.shape), tuple(template.z.shape), ()]
+    rank, world = shard
+    B, *rest = template.z.shape
+    whole = (B * world, *rest)
+    want = [whole, (), whole, whole, ()]
     if n != len(want):
         raise ValueError(
             f"state file {path} holds {n} leaves; the current engine state has "
@@ -314,6 +334,8 @@ def load_latent_state(path: str, template: LatentState):
                 f"state leaf {k}: file shape {tuple(got.shape)} != expected {shape} "
                 "(different image size, batch, or codebook geometry)"
             )
+    rows = slice(rank * B, (rank + 1) * B)
+    loaded = [a[rows] if a.ndim else a for a in loaded]
     return iters_done, LatentState.from_leaves(loaded, template.step_size, template.z.device)
 
 

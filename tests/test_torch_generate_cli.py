@@ -1,10 +1,10 @@
 """The port's v2 generation CLI on ``--cuda_device cpu`` with the tiny
 fallback models (no checkpoint files): the PNG and its ``comment`` chunk
 as Pillow reads it, ``--prompts_file`` batches, ``--state`` resume, a
-checkpoint under taming's and OpenAI's names loaded from disk, the
-default device, an image larger than CLIP's resolution (the lanczos
-cutout path), ``--profile_dir``, and what is not ported
-(``NotImplementedError``)."""
+checkpoint under taming's and OpenAI's names loaded from disk (a ViT
+and a ModifiedResNet CLIP), the default device, an image larger than
+CLIP's resolution (the lanczos cutout path), ``--profile_dir``, and a
+batch that does not divide over the ranks."""
 
 import json
 
@@ -135,12 +135,33 @@ def test_checkpoints_under_published_names_load_from_disk(tmp_path, capsys):
         generate.load_vqgan(str(tmp_path / "bad.yaml"), str(tmp_path / "vq.ckpt"))
 
 
-@pytest.mark.parametrize("args,match", [
-    (["-p", "a fox", "-m", "RN50"], "ModifiedResNet"),
-])
-def test_what_is_not_ported_raises(args, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        generate.main(["-cd", "cpu", "-sd", "0", "-i", "1", "-o", str(tmp_path / "o.png"), *args])
+def test_a_resnet_clip_checkpoint_runs_through_the_cli(tmp_path, capsys):
+    """An OpenAI-named ModifiedResNet ``state_dict`` with BatchNorm's
+    ``num_batches_tracked`` entries: the config comes from the file, the
+    counters are dropped, and the cutouts take its resolution."""
+    cfg = CLIPConfig(embed_dim=32, image_resolution=64, vision_width=16, vision_layers=(1, 1, 1, 1),
+                     vision_heads=8, vocab_size=256, context_length=16, text_width=64, text_layers=1,
+                     text_heads=1)
+    sd = CLIP(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    sd.update({k.replace("running_var", "num_batches_tracked"): torch.tensor(7)
+               for k in list(sd) if k.endswith("running_var")})
+    sd["logit_scale"] = torch.tensor(4.6)
+    torch.save(sd, tmp_path / "RN.pt")
+    got_cfg, got_sd = generate.load_clip("RN50", str(tmp_path / "RN.pt"))
+    assert got_cfg == cfg and not any(k.endswith("num_batches_tracked") for k in got_sd)
+    io = _run(capsys, "-p", "a fox", "-i", "2", "-se", "1", "-m", "RN50", "--clip_checkpoint",
+              str(tmp_path / "RN.pt"), "-o", str(tmp_path / "o.png"))
+    assert "CLIP checkpoint not found" not in io.err
+    losses = [float(l.split("loss: ")[1].split(",")[0]) for l in io.out.splitlines() if l.startswith("i: ")]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+
+
+def test_a_batch_that_does_not_divide_over_the_ranks_raises(tmp_path, monkeypatch):
+    listing = tmp_path / "p.txt"
+    listing.write_text("a\nb\nc\n")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="global batch 3 not divisible by 2 ranks"):
+        generate.main([*TINY, "--prompts_file", str(listing), "-i", "1", "-o", str(tmp_path / "o.png")])
 
 
 @pytest.mark.parametrize("size", [(64, 64), (64, 40)])
