@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's v1 sampling path, its stage-1 and stage-2
 training steps, the chain of its training and sampling CLIs, its v2
-VQGAN+CLIP generation, its data parallelism and its evaluation CLI on
-one CUDA card (or two, where there are).
+VQGAN+CLIP generation, its data and tensor parallelism, remat, its
+evaluation CLI and its dry run on one CUDA card (or more, where there
+are).
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6,
@@ -12,6 +13,9 @@ one CUDA card (or two, where there are).
                                            # update on six states (phase_d2_trace)
     python3 chip_smoke.py --only tiny-trace  # phase 8 (c)'s tiny step under other
                                              # rounding (phase_tiny_trace)
+    python3 chip_smoke.py --only tiny-witness  # phase 8 (c)'s f32 steps, card and CPU,
+                                               # against float64 (phase_tiny_witness)
+    python3 chip_smoke.py --only tp  # build, then phase 11 alone
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -127,11 +131,12 @@ non-zero exit and no result line:
    update (after the step D2's are printed beside a witness, not held: see
    ``_train2_checks``); (b) the ``tem`` route fed ``embed_texts(tokens)``
    against the tokens route, same limits; (c) one step at
-   ``Stage2Config.tiny()`` on the card against the same step on the CPU,
-   f32, noise replayed: metrics, BatchNorm statistics, the optimizers'
-   first moments and the updated parameters at 1e-4, with the card's
-   convolutions off cuDNN (``exact_f32``; the same step on cuDNN is
-   printed beside it, not held); (d) the frozen stack
+   ``Stage2Config.tiny()`` on the card, f32, against the same step in
+   float64 on the CPU, noise replayed, four times: metrics, BatchNorm
+   statistics, the optimizers' first moments and the updated parameters
+   at 1e-4, with the card's convolutions off cuDNN (``exact_f32``; the
+   same step on cuDNN and the CPU's own f32 step are printed beside it
+   against float64, not held); (d) the frozen stack
    bit-equal after all the steps above. Then the chain through the entry
    points, full width, bf16, ``--fused_attn --fused_ln --ema 0.999``,
    batch 32, on 64 captioned 640 x 480 PNGs the script writes (read back
@@ -199,12 +204,36 @@ non-zero exit and no result line:
    resize included) under the CLI's defaults, in f32 and bf16, and the
    device's busy share over one batch; the CLI's wall seconds and the
    RN50 v2 step's ms come from (2) and (3).
+11. tensor parallelism, remat and the dry run (``--only tp``). (a) The
+   attention pair on a model rank's head group, (256, 128, 384) bf16 with
+   6 of BERT-base's 12 heads, the seed folded by the shard's head offset,
+   against the plain version of the whole width's heads 6-11 at rate 0.1
+   and 0, a planted fault each (the seed without the head offset, a
+   backward that ignores the mask), times beside the bound and SDPA. Then
+   phase 6's full-width stage-1 step (batch 128, bf16, ``--fused_attn
+   --fused_ln``, text dropout on) on (data, model) grids of (1, 2) and
+   (2, 2) ranks, the script started once per rank (``--tp-worker``), on
+   ``cuda:0`` over gloo (and a card each over NCCL where there are as
+   many cards as ranks), against the one-process step on the same batch
+   and generators at ``STEP_TOL['bf16']``: the metrics, the generator's
+   BatchNorm statistics and the encoder's gradients under a fixed
+   cotangent of tem; each rank's launches, 12 + 12 attention on the
+   tensor-core kernels at width 384 and 25 + 25 LayerNorm. (b)
+   ``torchrun ... train.cli --multihost --tp 2 --stage 1 --fused_attn
+   --fused_ln`` (tiny GAN nets over a 2-layer encoder of head dim 64),
+   twice: trains, saves, resumes; the checkpoint loads in one process.
+   (c) remat against none, f32, the full-width stage-1 step and the
+   stage-2 step at batch 32: metrics at 1e-5, peak memory and step times.
+   (d) CLIP ViT-B/32 split over two model ranks against one process at
+   1e-5 of the largest output. (e) ``dryrun.dryrun_multichip(2)``.
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
 could take and, where one PyTorch call computes the same function, that
 call's; the v2 kernels also with their launches at 256 px and on one
-RN50 step), the card's line from nvidia-smi, and last ``{"ok": true,
+RN50 step, the v1 training kernels with one rank's launches in a step of
+phase 11's grid, and the attention pair's rows at that rank's width
+384), the card's line from nvidia-smi, and last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -1865,7 +1894,8 @@ NO_BACKWARD = {"attention": 12, "attention_mma": 12, "attention_dropout": 0, "at
 WITH_BACKWARD = {"attention": 12, "attention_mma": 12, "attention_dropout": 12, "attention_bwd": 12,
                  "attention_bwd_mma": 12, "layernorm": 25, "layernorm_bwd": 25}
 FROZEN = ("encoder.", "projection.", "con_augment_1.", "gen_1.")
-# phase 8 (c), the tiny step on the card against the CPU's, f32: metrics and
+# phase 8 (c), the tiny f32 step on the card against the CPU's float64 one
+# (phase 9: the card's ranks against the CPU's f32 ranks): metrics and
 # BatchNorm statistics rtol = atol; an optimizer's first moment within MOMENT
 # of its tensor's largest plus as much relative; a parameter within PARAM
 # where its gradient is not rounding noise (its moment at least NOISE of the
@@ -2325,7 +2355,8 @@ def phase_d2_trace(card):
         torch.backends.cudnn.deterministic = False
 
 
-def hold_tiny_step(what, cpu, m_cpu, card, m_card, trained, critic_channels, *, stage1_rules=False) -> None:
+def hold_tiny_step(what, cpu, m_cpu, card, m_card, trained, critic_channels, *, stage1_rules=False,
+                   held_to=True) -> dict:
     """One tiny f32 step on the card against the same step on the CPU, at
     ``TINY_TOL``: the metrics, the trained modules' BatchNorm statistics,
     the optimizers' first moments (against each tensor's largest) and the
@@ -2338,10 +2369,15 @@ def hold_tiny_step(what, cpu, m_cpu, card, m_card, trained, critic_channels, *, 
     ``stage1_rules`` (phase 9, whose stage-1 steps train BERT): the
     attention key bias is left out too (zero gradient by structure), and
     so is a tensor no gradient reached (embedding rows no token used); the
-    half is then of the elements a gradient reached."""
+    half is then of the elements a gradient reached. ``held_to=False``
+    prints the readings and returns them without raising. Returns the
+    worst reading of each kind over its limit and ``flips``: the
+    parameter elements more than one learning rate apart (Adam's first
+    update moved them in opposite directions)."""
     import torch
 
     worst = dict.fromkeys(("metric", "bn", "moment", "param"), 0.0)
+    flips = 0
     fails = []
 
     def hold(kind, name, got, want, atol_scale=1.0, where=None):
@@ -2379,17 +2415,25 @@ def hold_tiny_step(what, cpu, m_cpu, card, m_card, trained, critic_channels, *, 
             hold("moment", f"{name}.{pn}", m_got, m_ref, scale, live)
             above = live & (m_ref.abs() >= TINY_TOL["noise"] * scale)
             hold("param", f"{name}.{pn}", p_card, p_cpu, 1.0, above)
+            lr = cpu.optimizers[name].param_groups[0]["lr"]
+            flips += int(((p_card.detach().double().cpu() - p_cpu.detach().double().cpu()).abs()
+                          > lr)[live.cpu()].sum())
             held += int(above.sum())
             total += int((live & (m_ref != 0)).sum()) if stage1_rules else m_ref.numel()
     log(f"  {what}: worst reading over its limit: "
         + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
         + f" (limits {TINY_TOL}); parameters held at {held} of "
         + (f"the {total} elements a gradient reached " if stage1_rules else f"{total} elements ")
-        + f"{'ok' if not fails else 'FAIL'}")
+        + f"{'ok' if not fails else 'FAIL'}; {flips} elements more than lr apart"
+        + ("" if held_to else f"; {len(fails)} readings over (printed, not held)"))
+    worst["flips"] = flips
+    if not held_to:
+        return worst
     if fails:
         raise AssertionError(f"{what}: {len(fails)} readings over their limits, e.g. {fails[:3]}")
     if held < 0.5 * total:
         raise AssertionError(f"{what}: only {held} of {total} parameter elements were held")
+    return worst
 
 
 def train2_tiny_inputs(seed=SEED):
@@ -2423,6 +2467,82 @@ def train2_tiny_step(cfg, init, batch, noise, device):
     if device != "cpu":
         torch.cuda.synchronize()
     return system, metrics
+
+
+@contextlib.contextmanager
+def float_keeps_f64():
+    """``Tensor.float()`` leaves a float64 tensor as it is, so that the
+    port's f32 casts (BatchNorm's and LayerNorm's statistics, the score
+    heads) keep a float64 step in float64."""
+    import torch
+
+    plain = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **kw: self if self.dtype == torch.float64 else plain(self, *a, **kw)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = plain
+
+
+def train2_tiny_step_f64(cfg, init, batch, noise):
+    """``train2_tiny_step`` in float64 on the CPU from the same state,
+    batch and noise: the images normalised as the step does (``x * 2/255
+    - 1``), every float tensor widened. The witness both f32 steps are
+    read against."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+    wide = lambda t: t.double() if t.is_floating_point() else t
+    system = Stage2System(cfg, device="meta")
+    system.load_state_dict({k: wide(v.clone()) for k, v in init.items()}, assign=True)
+    batch = dict(batch, image=batch["image"].double() * (2.0 / 255.0) - 1.0)
+    with float_keeps_f64():
+        metrics = system.train_step(batch, noise={k: wide(v) for k, v in noise.items()})
+    if any(p.dtype != torch.float64 for p in system.parameters()):
+        raise AssertionError("the float64 witness step left float64")
+    return system, metrics
+
+
+def phase_tiny_witness(card, repeats=4, seeds=4):
+    """``--only tiny-witness``: phase 8 (c)'s check ``repeats`` times on its
+    own inputs, then once on each of ``seeds - 1`` more seeds, each time
+    with both f32 steps (the CPU's, the card's off cuDNN) read against the
+    same step in float64 on the CPU. Which side moves when (c) fails: the
+    CPU (oneDNN, threads), the card (TF32 left on, another engine), or
+    both (the step itself is ill-conditioned at these limits). Prints
+    every reading and the elements each side stepped more than lr from
+    the float64 step; holds nothing."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage2 import TRAINED
+
+    log(f"tiny-witness: phase 8 (c)'s step against float64 on the CPU, on {card}")
+    log(f"  host: {host_description()}")
+    log(f"  TF32 before the witness: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cuDNN {torch.backends.cudnn.allow_tf32}")
+    set_tf32(False)
+    rows = []
+    for run, seed in enumerate([SEED] * repeats + [SEED + i for i in range(1, seeds)]):
+        cfg, init, batch, noise = train2_tiny_inputs(seed)
+        f64 = train2_tiny_step_f64(cfg, init, batch, noise)
+        cpu = train2_tiny_step(cfg, init, batch, noise, "cpu")
+        with exact_f32():
+            dev = train2_tiny_step(cfg, init, batch, noise, "cuda")
+        cudnn = train2_tiny_step(cfg, init, batch, noise, "cuda")
+        tag = f"run {run} seed {seed}"
+        read = lambda what, ref, got: hold_tiny_step(f"{tag}: {what}", *ref, *got, TRAINED, cfg.d2_channels,
+                                                     held_to=False)
+        rows.append({
+            "card_vs_cpu": read("card off cuDNN vs CPU f32 (phase 8 (c))", cpu, dev),
+            "cpu_vs_f64": read("CPU f32 vs CPU float64", f64, cpu),
+            "card_vs_f64": read("card off cuDNN vs CPU float64", f64, dev),
+            "cudnn_vs_f64": read("card on cuDNN vs CPU float64", f64, cudnn),
+        })
+    for key in rows[0]:
+        log(f"  {key}: worst metric reading over the runs {max(r[key]['metric'] for r in rows):.3f}, "
+            f"moment {max(r[key]['moment'] for r in rows):.3f}, "
+            f"elements more than lr apart {[r[key]['flips'] for r in rows]}")
 
 
 def phase_tiny_trace(card):
@@ -2516,47 +2636,41 @@ def host_description() -> str:
             f"{torch.get_float32_matmul_precision()}; {knobs}; environment {env}")
 
 
+TINY_RUNS = 4  # phase 8 (c) holds the card's step this many times
+
+
 def phase_train2_tiny(gen):
     """(c) one step at ``Stage2Config.tiny()`` on the card against the same
-    step on the CPU, f32, TF32 off, from one state with the noise
-    replayed. This ties the card to the CPU, which the tests hold to JAX.
-    The held step runs off cuDNN (``exact_f32``); the same step on cuDNN
-    is printed beside it."""
-    import torch
-
+    step in float64 on the CPU, from one state with the noise replayed, f32
+    on the card with TF32 off, ``TINY_RUNS`` times. This ties the card to
+    the CPU, which the tests hold to JAX. The held step runs off cuDNN
+    (``exact_f32``); the same step on cuDNN, and the CPU's own f32 step,
+    are printed beside it against the float64 step. The reference is the
+    float64 step and not the CPU's f32 one because the CPU's f32 arithmetic
+    is the host's: ``--only tiny-witness`` read both f32 steps within 0.009
+    (metrics) and 0.384 (moments) of their limits from the float64 step on
+    seven runs, with no element stepped apart, where (c) against the CPU's
+    f32 step had read 23.53x on another host (``PERF.md``, Findings)."""
     from imagegenerator_tpu_torch.train.stage2 import TRAINED
 
     set_tf32(False)
     cfg, init, batch, noise = train2_tiny_inputs()
-    cpu, m_cpu = train2_tiny_step(cfg, init, batch, noise, "cpu")
+    ref = train2_tiny_step_f64(cfg, init, batch, noise)
 
-    def check(noise, what, cpu=cpu, m_cpu=m_cpu):
+    def check(noise, what):
         with exact_f32():
             card, m_card = train2_tiny_step(cfg, init, batch, noise, "cuda")
-        hold_tiny_step(what, cpu, m_cpu, card, m_card, TRAINED, cfg.d2_channels)
+        hold_tiny_step(what, *ref, card, m_card, TRAINED, cfg.d2_channels)
 
-    try:
-        check(noise, "(c) tiny step, card vs CPU, f32")
-    except AssertionError:
-        # which side moved: the same card step against a CPU step whose
-        # convolutions run off oneDNN (PyTorch's own kernels); printed
-        # before the check's failure is raised
-        with torch.backends.mkldnn.flags(enabled=False):
-            plain = train2_tiny_step(cfg, init, batch, noise, "cpu")
-        try:
-            check(noise, "(c) the card vs the CPU off oneDNN, printed before the failure above is raised", *plain)
-        except AssertionError as e:
-            log(f"  {e}")
-        raise
-    card, m_card = train2_tiny_step(cfg, init, batch, noise, "cuda")
-    try:
-        hold_tiny_step("(c) the same step on cuDNN, printed, not held", cpu, m_cpu, card, m_card, TRAINED,
-                       cfg.d2_channels)
-    except AssertionError as e:
-        log(f"  not held: {e}")
+    for run in range(TINY_RUNS):
+        check(noise, f"(c) tiny step, card f32 vs CPU float64, run {run + 1} of {TINY_RUNS}")
+    for what, device in (("the CPU's f32 step", "cpu"), ("the card's step on cuDNN", "cuda")):
+        hold_tiny_step(f"(c) {what} vs CPU float64, printed, not held", *ref,
+                       *train2_tiny_step(cfg, init, batch, noise, device), TRAINED, cfg.d2_channels,
+                       held_to=False)
     swapped = dict(noise, gp_eps=noise["gp_eps"].flip(0))
     must_catch("a card-side step that replays the critic iterations' GP draws in the wrong order",
-               lambda: check(swapped, "(c) tiny step, card with the GP draws swapped, vs CPU"))
+               lambda: check(swapped, "(c) tiny step, card with the GP draws swapped, vs CPU float64"))
 
 
 def write_chain_dataset(root: Path) -> None:
@@ -3634,25 +3748,541 @@ def phase_clip_eval(vq_argmin, scanline_lerp, gen, card, samples: Path | None = 
     return step_launches
 
 
+# ------------------------------------------------------------------ TP
+
+TP = 2  # the model axis of phase 11's grids
+TP_GRIDS = ((1, 2), (2, 2))  # (data, model)
+TP_ATTN = (2 * TRAIN_BATCH, 128, 384, 6)  # a model rank's attention at (1, 2): 6 of 12 heads
+TP_SEED = SEED + 40
+TP_TIMEOUT = 400  # seconds, for each group of rank processes
+TP_CLIP_BATCH = 4
+TP_CLIP_TOL = 1e-5  # of the largest output, f32 with TF32 off
+TP_CLI_BATCH = 32  # a data index
+REMAT_TOL = 1e-5  # metrics, relative, f32 (the JAX package's remat test)
+REMAT_STAGE2_BATCH = 32
+
+
+def tp_step_inputs(cfg, device):
+    """Phase 11 (a)'s seeded state (a full-width ``Stage1System``), its
+    global batch and its generators, built alike in every process."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage1 import Stage1System
+
+    system = Stage1System(cfg, device=device, generator=torch.Generator(device=device).manual_seed(TP_SEED))
+    batch = train_batch(cfg, torch.Generator(device=device).manual_seed(TP_SEED + 1))
+    gens = (torch.Generator(device=device).manual_seed(TP_SEED + 2), torch.Generator().manual_seed(TP_SEED + 3))
+    return system, batch, gens
+
+
+def tp_text_grads(system, batch, grid=None):
+    """The encoder's gradients of ``sum(tem * cot)`` over the doubled
+    caption batch (dropout off), from the state before the step, flattened
+    in parameter order (``text_grads`` of phase 6, on a grid: each data
+    index encodes its share, the shares' gradients are summed over the
+    data group and the slices gathered over the model group)."""
+    import torch
+
+    from imagegenerator_tpu_torch.parallel import dp, tp
+
+    B = batch["input_ids"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 4)
+    perm = torch.randperm(B, generator=gen, device="cuda")
+    cot = torch.randn((2 * B, system.config.tem_size), generator=gen, device="cuda")
+    ids, mask = (torch.cat([t, t[perm]]) for t in (batch["input_ids"], batch["attention_mask"]))
+    data, d = (grid.data, grid.data_index) if grid is not None else (1, 0)
+    share = slice(d * 2 * B // data, (d + 1) * 2 * B // data)
+    tem = system.encode_text(ids[share], mask[share])
+    names, params = zip(*system.encoder.named_parameters())
+    grads = list(torch.autograd.grad((tem.float() * cot[share]).sum(), params))
+    if grid is not None and grid.data_group is not None:
+        dp.all_reduce_mean(grads, grid.data_group)
+        grads = [g * data for g in grads]
+    sliced = tp.sharded_keys(system.encoder)
+    return torch.cat([tp.gather(g, *sliced.get(n, (None, None))).flatten().double() for n, g in zip(names, grads)])
+
+
+def tp_readings(system, metrics) -> dict:
+    """What (a) holds: the four metrics and the generator's BatchNorm
+    statistics after the step; printed beside them, the first layer's
+    query weight (whole)."""
+    import torch
+
+    from imagegenerator_tpu_torch.parallel import tp
+
+    key = "encoder.encoder.layer.0.attention.self.query.weight"
+    dim, shard = tp.sharded_keys(system).get(key, (None, None))
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "bn": torch.cat([b.detach().float().flatten() for b in system.generator.buffers()]).cpu(),
+            "query": tp.gather(system.state_dict()[key], dim, shard).float().cpu()}
+
+
+def tp_clip_inputs(device):
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIP, CLIPConfig
+
+    cfg = CLIPConfig.vit_b32()
+    model = CLIP(cfg, device="meta")
+    model.load_state_dict({k: v.to(device) for k, v in seeded_clip_state(cfg, TP_SEED).items()}, assign=True)
+    gen = torch.Generator(device=device).manual_seed(TP_SEED + 5)
+    images = torch.randn((TP_CLIP_BATCH, cfg.image_resolution, cfg.image_resolution, 3), generator=gen,
+                         device=device)
+    tokens = torch.randint(1, cfg.vocab_size, (TP_CLIP_BATCH, cfg.context_length), generator=gen, device=device)
+    return model.eval(), images, tokens
+
+
+def tp_clip_outputs(model, images, tokens):
+    import torch
+
+    with torch.no_grad():
+        out = model.encode_image(images), model.encode_text(tokens)
+    torch.cuda.synchronize()
+    return [t.float().cpu() for t in out]
+
+
+def tp_worker(rank: int, world: int, port: int, nccl: bool, out: str) -> int:
+    """One rank of phase 11 (``chip_smoke.py --tp-worker RANK``): the
+    full-width stage-1 step on a ``(world / 2, 2)`` grid, its launches and
+    readings, a second step timed; at world 2 on one card, CLIP ViT-B/32
+    split over the two ranks."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from imagegenerator_tpu_torch.ops.kernels import attention, layernorm
+    from imagegenerator_tpu_torch.parallel import mesh, tp
+
+    device = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(device)
+    card = os.environ["TP_CARD"]
+    backend = "cpu:gloo,cuda:nccl" if nccl else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    try:
+        set_tf32(False)
+        grid = mesh.make_grid(TP)
+        where = f"({grid.data}, {grid.model}) {'NCCL, a card each' if nccl else 'gloo, one card'}"
+        log(f"  [rank {rank}] data index {grid.data_index}, model index {grid.model_index} of {where}, "
+            f"on {device}")
+        cfg = train_config(True, True, torch.bfloat16)
+        system, batch, (gen, host) = tp_step_inputs(cfg, "cuda")
+        system.shard(grid)
+        grads = tp_text_grads(system, batch, grid).cpu()
+        b = TRAIN_BATCH // grid.data
+        mine = {k: v[grid.data_index * b:(grid.data_index + 1) * b] for k, v in batch.items()}
+        shapes = []
+        plain = attention.attention_fwd, attention.attention_bwd
+
+        def record(fn):
+            def wrapped(q, *args):
+                shapes.append((fn.__name__, tuple(q.shape)))
+                return fn(q, *args)
+            return wrapped
+
+        attention.attention_fwd, attention.attention_bwd = record(plain[0]), record(plain[1])
+        reset_counts(attention, layernorm)
+        try:
+            t0 = time.perf_counter()
+            metrics = system.train_step(mine, generator=gen, host_generator=host, reduce=mesh.data_mean(grid))
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            attention.attention_fwd, attention.attention_bwd = plain
+        counts = read_counts(attention, layernorm)
+        widths = sorted(set(shapes))
+        want_shape = (2 * b, cfg.seq_len, cfg.bert.hidden_size // TP)
+        log(f"  [rank {rank}] step 1: {first_ms:.1f} ms, launches {counts}, attention calls {widths}")
+        if counts != WITH_BACKWARD or any(s != want_shape for _, s in widths):
+            raise AssertionError(f"rank {rank}: launches {counts}, attention shapes {widths}; expected "
+                                 f"{WITH_BACKWARD} at {want_shape}")
+        readings = dict(tp_readings(system, metrics), grads=grads)
+        step_ms = None
+        if nccl:  # over gloo the reduces cross the host: a time of no use
+            t0 = time.perf_counter()
+            system.train_step(mine, generator=gen, host_generator=host, reduce=mesh.data_mean(grid))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            log(f"  [rank {rank}] step 2: {step_ms:.1f} ms a rank, {TRAIN_BATCH / step_ms * 1e3:.1f} img/s over "
+                f"the grid [{card}]")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        tag = f"{grid.data}x{grid.model}{'_nccl' if nccl else ''}"
+        if rank == 0:
+            torch.save({**readings, "counts": counts, "step_ms": step_ms, "first_ms": first_ms, "peak_gib": peak},
+                       os.path.join(out, f"tp_{tag}.pt"))
+        del system
+        if world == TP and not nccl:
+            model, images, tokens = tp_clip_inputs("cuda")
+            model.shard_model(tp.ModelShard(grid.model_index, grid.model, grid.model_group))
+            got = tp_clip_outputs(model, images, tokens)
+            if rank == 0:
+                torch.save(got, os.path.join(out, "tp_clip.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_workers(tmp: Path, world: int, nccl: bool, card: str) -> None:
+    """The ranks of one grid, one process each; their log lines shown here."""
+    import os
+
+    logs = [tmp / f"tp{world}_rank{r}.log" for r in range(world)]
+    port = free_port()
+    env = dict(os.environ, TP_CARD=card, PYTHONPATH=str(ROOT))
+    procs = []
+    try:
+        for r, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker", str(r), "--tp-world", str(world),
+                     "--tp-port", str(port), "--tp-out", str(tmp)] + (["--tp-nccl"] if nccl else []),
+                    stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, env=env))
+        for p in procs:
+            p.wait(timeout=TP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r, path in enumerate(logs):
+            failed = procs[r].returncode != 0
+            for line in path.read_text().splitlines():
+                if f"[rank {r}]" in line or failed:
+                    log(line if line.startswith("  ") else f"  [rank {r} output] {line}")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase 11: rank(s) {bad} of world {world} failed")
+
+
+def hold_tp_step(tag: str, got: dict, want: dict, cfg) -> None:
+    """(a): the grid step's readings against the one-process step's, at
+    ``STEP_TOL['bf16']``: metrics (gp by its own limit), the generator's
+    BatchNorm statistics and the encoder's gradients under a fixed
+    cotangent of tem (phase 6's well-conditioned witness of the backward,
+    here through the model group's reduces); the query weight after the
+    step printed, in learning rates (Adam's first update moves each
+    element by lr x sign(g), which a gradient within rounding of 0 flips:
+    the generator step's gradient is ill-conditioned through the KL
+    term)."""
+    limits = STEP_TOL["bf16"]
+    grads = ((got["grads"] - want["grads"]).norm() / want["grads"].norm()).item()
+    worst = [(grads / limits["grads"], f"encoder grads under a fixed tem cotangent, relative L2 {grads:.3e} "
+                                        f"(limit {limits['grads']:g})")]
+    for k, w in want["metrics"].items():
+        rel = abs(got["metrics"][k] - w) / max(1.0, abs(w))
+        limit = limits["gp" if k == "gp" else "metric"]
+        worst.append((rel / limit, f"{k} {rel:.3e} (limit {limit:g})"))
+    rel = (got["bn"] - want["bn"]).abs().max().item() / max(1.0, want["bn"].abs().max().item())
+    worst.append((rel / limits["bn"], f"generator BN stats {rel:.3e} (limit {limits['bn']:g})"))
+    q = (got["query"] - want["query"]).abs()
+    log(f"  {tag} vs one process: " + ", ".join(w for _, w in worst)
+        + f"; query weight max abs {q.max().item():.3e} = {q.max().item() / cfg.encoder_lr:.2f} encoder lr, "
+          f"{(q > cfg.encoder_lr).float().mean().item() * 100:.3f}% of it more than one lr apart (printed)")
+    bad = [w for r, w in worst if not r <= 1.0]
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+
+
+def phase_tp_kernels(attention, gen, card) -> dict:
+    """(a) the attention pair on a model rank's head group: (256, 128,
+    384), 6 of BERT-base's 12 heads, bf16, the tensor-core kernels with the
+    shard's seed folded (head offset 6) against the plain version of the
+    whole width's heads 6-11, rate 0.1 and 0; a planted fault each (the
+    seed without the head offset; a backward that ignores the mask); then
+    times beside the bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagegenerator_tpu_torch.models.bert import _fold_seed
+
+    B, T, H, nh = TP_ATTN
+    log(f"phase 11 (a): attention on a head group, bf16 {TP_ATTN[:3]}, {nh} heads, against the whole width's "
+        f"heads {nh}-{2 * nh - 1}")
+    set_tf32(False)
+    q, k, v, mask = attention_inputs(B, T, 2 * H, torch.bfloat16, gen)
+    do = torch.randn((B, T, 2 * H), generator=gen, device="cuda").bfloat16()
+    half = lambda t: t[..., H:].contiguous()
+    qs, ks, vs, dos = map(half, (q, k, v, do))
+    errs = {}
+
+    def check(rate, fold=True, bwd_mask=True):
+        seed = SEED + 11
+        local = _fold_seed(seed, 0, nh) if fold else seed
+        o, m, l = attention.attention_fwd(qs, ks, vs, mask, nh, rate, local)
+        ro, rm, rl = attention.attention_reference(q, k, v, mask, 2 * nh, rate, seed)
+        torch.cuda.synchronize()
+        e_o = compare("head-group o", o, ro[..., H:], *TOL["attn_o_bf16"], quiet=True)
+        compare("head-group m", m, rm[:, nh:], *TOL["attn_m_mma"], quiet=True)
+        compare("head-group l", l, rl[:, nh:], *TOL["attn_ml"], quiet=True)
+        got = attention.attention_bwd(qs, ks, vs, dos, mask if bwd_mask else None, rm[:, nh:].contiguous(),
+                                      rl[:, nh:].contiguous(), nh, rate, local)
+        want = attention.attention_bwd_reference(q, k, v, do, mask, rm, rl, 2 * nh, rate, seed)
+        torch.cuda.synchronize()
+        e_g = max(compare(f"head-group {n}", g, w[..., H:], *TOL["attn_grad_bf16"], quiet=True)
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        log(f"  rate {rate}: max abs o {e_o:.3e}, dq/dk/dv {e_g:.3e} ok")
+        return e_o, e_g
+
+    before = (attention.mma_launches, attention.mma_bwd_launches)
+    for rate in (0.1, 0.0):
+        errs[rate] = check(rate)
+    if (attention.mma_launches - before[0], attention.mma_bwd_launches - before[1]) != (2, 2):
+        raise AssertionError("phase 11: the head-group attention left the tensor-core kernels")
+    must_catch("a head group's forward whose seed misses the head offset", lambda: check(0.1, fold=False))
+    must_catch("a head group's backward that ignores the key mask", lambda: check(0.1, bwd_mask=False))
+    del q, k, v, do
+    at = attention_times(attention, TP_ATTN, gen, card, fma=False)
+    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+    (qh, kh, vh), keep = sdpa_inputs(q, k, v, mask, nh)
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), inner=5)
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+    doh = do.reshape(B, T, nh, -1).transpose(1, 2)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True), inner=5)
+    log(f"  at rate 0, bf16 {TP_ATTN[:3]}, {nh} heads: attention_fwd {at['fwd', 0.0]['ms']:.4f} ms (device "
+        f"{at['fwd', 0.0]['device_ms']:.4f}), F.scaled_dot_product_attention {sdpa_fwd:.4f} ms; attention_bwd "
+        f"{at['bwd', 0.0]['ms']:.4f} ms (device {at['bwd', 0.0]['device_ms']:.4f}), its autograd backward "
+        f"{sdpa_bwd:.4f} ms [{card}]")
+    return {"fwd": {**kernel_entry(at["fwd", 0.1]), "device_ms": at["fwd", 0.1]["device_ms"],
+                    "ms_rate0": at["fwd", 0.0]["ms"], "device_ms_rate0": at["fwd", 0.0]["device_ms"],
+                    "library_ms": sdpa_fwd, "max_abs_err": errs[0.1][0]},
+            "bwd": {**kernel_entry(at["bwd", 0.1]), "device_ms": at["bwd", 0.1]["device_ms"],
+                    "ms_rate0": at["bwd", 0.0]["ms"], "device_ms_rate0": at["bwd", 0.0]["device_ms"],
+                    "library_ms": sdpa_bwd, "max_abs_err": errs[0.1][1]}}
+
+
+def phase_tp_steps(tmp: Path, card: str) -> dict:
+    """(a) the full-width stage-1 step on the grids against one process,
+    and (d) CLIP ViT-B/32 over two model ranks against one process."""
+    import torch
+
+    set_tf32(False)
+    cfg = train_config(True, True, torch.bfloat16)
+    log(f"phase 11 (a): the full-width stage-1 step on (data, model) grids, batch {TRAIN_BATCH}, bf16, "
+        f"--fused_attn --fused_ln, text dropout on, against one process")
+    system, batch, (gen, host) = tp_step_inputs(cfg, "cuda")
+    grads = tp_text_grads(system, batch).cpu()
+    want = dict(tp_readings(system, system.train_step(batch, generator=gen, host_generator=host)), grads=grads)
+    # the second step timed, as a rank's is over NCCL
+    one_ms = wall_ms(lambda: system.train_step(batch, generator=gen, host_generator=host), runs=1)
+    log(f"  one process: step 2 {one_ms:.1f} ms, {TRAIN_BATCH / one_ms * 1e3:.1f} img/s [{card}]")
+    del system, batch
+    model, images, tokens = tp_clip_inputs("cuda")
+    clip_want = tp_clip_outputs(model, images, tokens)
+    del model
+    torch.cuda.empty_cache()  # the rank processes share the card
+    runs = [(d * m, False) for d, m in TP_GRIDS]
+    runs += [(d * m, True) for d, m in TP_GRIDS if d * m <= torch.cuda.device_count()]
+    counts = None
+    for world, nccl in runs:
+        t0 = time.perf_counter()
+        run_tp_workers(tmp, world, nccl, card)
+        tag = f"{world // TP}x{TP}{'_nccl' if nccl else ''}"
+        got = torch.load(tmp / f"tp_{tag}.pt")
+        hold_tp_step(f"({world // TP}, {TP}) {'NCCL' if nccl else 'gloo'}", got, want, cfg)
+        timed = (f"step {got['step_ms']:.1f} ms a rank ({got['step_ms'] / one_ms:.2f}x one process), "
+                 if got["step_ms"] is not None else "")
+        log(f"  ({world // TP}, {TP}) over {'NCCL, a card each' if nccl else 'gloo on one card'}: {timed}first step "
+            f"{got['first_ms']:.1f} ms, peak {got['peak_gib']:.2f} GiB a rank, {time.perf_counter() - t0:.1f} s "
+            f"with the processes [{card}]")
+        counts = counts or got["counts"]
+    if len(runs) == len(TP_GRIDS):
+        log(f"  one card here: the grids ran over gloo only (a card each needs {max(d * m for d, m in TP_GRIDS)})")
+    clip_got = torch.load(tmp / "tp_clip.pt")
+    err = max((g - w).abs().max().item() / w.abs().max().item() for g, w in zip(clip_got, clip_want))
+    log(f"phase 11 (d): CLIP ViT-B/32 split over 2 model ranks vs one process, f32, batch {TP_CLIP_BATCH}: "
+        f"{err:.3e} of the largest output (limit {TP_CLIP_TOL:g}) {'ok' if err <= TP_CLIP_TOL else 'FAIL'}")
+    if not err <= TP_CLIP_TOL:
+        raise AssertionError(f"phase 11 (d): CLIP under TP {err:.3e} from one process")
+    return counts
+
+
+TP_CLI_BERT = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=512,
+                   max_position_embeddings=64)  # head dim 64, which the card's attention kernels take
+TP_CLI_SEQ = 32
+
+
+def phase_tp_cli(tmp: Path, card: str) -> None:
+    """(b) ``torchrun --nproc_per_node 2 -m imagegenerator_tpu_torch.train.cli
+    --multihost --tp 2 --stage 1 --fused_attn --fused_ln`` with ``--tiny``
+    GAN nets over a seeded 2-layer, 2-head encoder of head dim 64
+    (``--bert_checkpoint``: each model rank runs one head through the
+    kernels), the same command again (the resume), then the checkpoint in
+    one process. (a) runs the full width; this run checks the CLI's grid,
+    its per-data-index loader, the gathered save and the sliced resume."""
+    import os
+
+    import torch
+
+    from imagegenerator_tpu_torch import convert
+    from imagegenerator_tpu_torch.checkpoint import CheckpointManager
+    from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
+    from imagegenerator_tpu_torch.train.stage1 import Stage1Config
+
+    own = torch.cuda.device_count() >= TP
+    log(f"phase 11 (b): torchrun, 2 ranks, train.cli --multihost --tp 2 --stage 1 --fused_attn --fused_ln, tiny "
+        f"GAN nets over a {TP_CLI_BERT['num_layers']}-layer encoder of width {TP_CLI_BERT['hidden_size']}, batch "
+        f"{TP_CLI_BATCH}, {'a card each (NCCL)' if own else 'one card (gloo)'}")
+    write_chain_dataset(tmp / "ds")
+    bert_cfg = BertConfig(**TP_CLI_BERT)
+    torch.save(BertEncoder(bert_cfg, device="cpu", generator=torch.Generator().manual_seed(TP_SEED)).state_dict(),
+               tmp / "bert.pt")
+    ckpt = tmp / "ckpt"
+    argv = ["--multihost", "--tp", str(TP), "--stage", "1", "--tiny", "--bert_checkpoint", str(tmp / "bert.pt"),
+            "--seq_len", str(TP_CLI_SEQ), "--data", str(tmp / "ds"), "--root", "imgs",
+            "--ann_file", "ann/captions.json", "--batch_size", str(TP_CLI_BATCH), "--num_epochs", "1",
+            "--checkpoint_dir", str(ckpt), "--fused_attn", "--fused_ln", "--seed", str(SEED)]
+    argv += [] if own else ["--device", "cuda:0"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for run in (1, 2):
+        logs = tmp / f"tp_torchrun{run}"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(TP),
+               "--log_dir", str(logs), "--redirects", "3", "-m", "imagegenerator_tpu_torch.train.cli", *argv]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=TP_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        outs = {int(p.parent.name): p.read_text() for p in logs.rglob("stdout.log")}
+        if done.returncode or sorted(outs) != list(range(TP)):
+            for line in (done.stdout + done.stderr).splitlines()[-30:]:
+                log(f"    | {line}")
+            for p in logs.rglob("stderr.log"):
+                for line in p.read_text().splitlines()[-15:]:
+                    log(f"    | {p.parent.name}: {line}")
+            raise AssertionError(f"torchrun --tp run {run}: exit {done.returncode}, rank logs {sorted(outs)}")
+        for r, out in sorted(outs.items()):
+            lines = out.splitlines()
+            for line in lines:
+                if line.startswith(("[dp]", "[tp]", "step ", "Loaded")):
+                    log(f"    | rank {r}: {line}")
+            steps = len([l for l in lines if l.startswith("step ")])
+            resumed = "Loaded checkpoint at epoch 0" in lines
+            want_steps = CHAIN_IMAGES // TP_CLI_BATCH if (run == 1 and r == 0) else 0
+            if steps != want_steps or resumed != (run == 2) or f"[tp] rank {r} of {TP}" not in out:
+                raise AssertionError(f"torchrun --tp run {run}, rank {r}: {steps} step lines, resumed {resumed}")
+        log(f"  run {run}: {seconds:.1f} s, both ranks {'resumed' if run == 2 else 'trained'} [{card}]")
+    flat, start = CheckpointManager(str(ckpt / "Stage1")).restore_latest()
+    one = convert.stage1_from_numpy(flat, Stage1Config.tiny(bert=bert_cfg, seq_len=TP_CLI_SEQ), "cuda")
+    key = "params/encoder/layer_0/attention/query/kernel"
+    width = TP_CLI_BERT["hidden_size"]
+    if start != 1 or one.step != CHAIN_IMAGES // TP_CLI_BATCH or flat[key].shape != (width, width):
+        raise AssertionError(f"the --tp 2 checkpoint: start {start}, step {one.step}, {key} {flat[key].shape}")
+    log(f"  the checkpoint is the whole state ({key} {flat[key].shape}) and loads in one process at step "
+        f"{one.step}")
+
+
+def phase_tp_remat(gen, card) -> None:
+    """(c) remat: the full-width stage-1 step (batch 128) and the stage-2
+    step (batch 32), f32 with TF32 off and cuDNN deterministic, with remat
+    against without from one state and one set of generators: the first
+    step's metrics at ``REMAT_TOL`` and its peak memory, then two more
+    steps of each timed in turns."""
+    import dataclasses
+
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage1 import Stage1System
+    from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+    log(f"phase 11 (c): remat against no remat, f32, TF32 off, cuDNN deterministic (metrics rtol {REMAT_TOL:g})")
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg1 = train_config(True, True, None)
+        cfg2 = train2_config(True, None)
+        state1 = Stage1System(cfg1, device="cuda", generator=torch.Generator("cuda").manual_seed(TP_SEED)).state_dict()
+        state2 = Stage2System(cfg2, device="cuda", generator=torch.Generator("cuda").manual_seed(TP_SEED)).state_dict()
+        batch1 = train_batch(cfg1, torch.Generator("cuda").manual_seed(TP_SEED + 1))
+        batch2 = train2_batch(cfg2, torch.Generator("cuda").manual_seed(TP_SEED + 1), REMAT_STAGE2_BATCH)
+        for stage, cfg, state, batch, build in ((1, cfg1, state1, batch1, train_system),
+                                                (2, cfg2, state2, batch2, train2_system)):
+            systems = {remat: build(dataclasses.replace(cfg, remat=remat), state) for remat in (False, True)}
+            gens = {remat: (torch.Generator("cuda").manual_seed(TP_SEED + 2), torch.Generator().manual_seed(TP_SEED + 3))
+                    for remat in systems}
+
+            def step(remat):
+                gen, host = gens[remat]
+                kw = dict(host_generator=host) if stage == 1 else {}
+                return systems[remat].train_step(batch, generator=gen, **kw)
+
+            runs = {}
+            for remat in (False, True):  # the first step of each: metrics and peak memory
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                runs[remat] = {k: v.item() for k, v in step(remat).items()}
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                log(f"  stage {stage}, remat {remat}: first step's peak {peak:.2f} GiB over the {base / 2**30:.2f} "
+                    f"GiB held before it, metrics {runs[remat]} [{card}]")
+            times = {False: [], True: []}
+            for remat in (False, True, True, False):  # later steps, in turns
+                times[remat].append(wall_ms(lambda: step(remat), runs=1))
+            log(f"  stage {stage}: step {statistics.mean(times[False]):.1f} ms without remat (turns "
+                f"{', '.join(f'{t:.1f}' for t in times[False])}), {statistics.mean(times[True]):.1f} ms with "
+                f"(turns {', '.join(f'{t:.1f}' for t in times[True])}) [{card}]")
+            del systems
+            torch.cuda.empty_cache()
+            rel = max(abs(runs[True][k] - w) / max(abs(w), 1e-30) for k, w in runs[False].items())
+            log(f"  stage {stage}: remat vs none, first step's metrics max relative difference {rel:.3e} "
+                f"(limit {REMAT_TOL:g}) {'ok' if rel <= REMAT_TOL else 'FAIL'}")
+            if not rel <= REMAT_TOL:
+                raise AssertionError(f"stage {stage}: remat changed the metrics by {rel:.3e}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_tp_dryrun(card) -> None:
+    """(e) ``dryrun.dryrun_multichip(2)`` on the card."""
+    from imagegenerator_tpu_torch import dryrun
+
+    log("phase 11 (e): dryrun.dryrun_multichip(2) on the card")
+    t0 = time.perf_counter()
+    report = dryrun.dryrun_multichip(2)
+    log(f"  {time.perf_counter() - t0:.1f} s: ranks on {report['device']} over {report['backend']}; CLIP TP "
+        f"{report['clip_tp']['rel_err']:.3e} from the unsplit model; stage-2 DP {report['stage2_dp']['images_per_s_n']:.1f} "
+        f"img/s over 2 ranks (tiny widths) [{card}]")
+
+
+def phase_tp(attention, gen, card):
+    """Phase 11: tensor parallelism, remat and the dry run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        timed = phase_tp_kernels(attention, gen, card)
+        counts = phase_tp_steps(Path(tmp), card)
+        phase_tp_cli(Path(tmp), card)
+    phase_tp_remat(gen, card)
+    phase_tp_dryrun(card)
+    return counts, timed
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "d2-trace", "tiny-trace"],
+    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "d2-trace", "tiny-trace",
+                                           "tiny-witness"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
     parser.add_argument("--dp-worker", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-nccl", action="store_true", help=argparse.SUPPRESS)
+    # and phase 11 once per rank of each grid with these
+    parser.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-world", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-nccl", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
     if args.dp_worker is not None:
         return dp_worker(args.dp_worker, args.dp_port, args.dp_nccl)
+    if args.tp_worker is not None:
+        return tp_worker(args.tp_worker, args.tp_world, args.tp_port, args.tp_nccl, args.tp_out)
     sys.path.insert(0, str(ROOT))
     from imagegenerator_tpu_torch.ops.kernels import (
         _build,
@@ -3711,10 +4341,14 @@ def main() -> int:
         phase_dp(card)
     if args.only == "eval":
         phase_clip_eval(vq_argmin, scanline_lerp, gen, card)
+    if args.only == "tp":
+        phase_tp(attention, gen, card)
     if args.only == "d2-trace":
         phase_d2_trace(card)
     if args.only == "tiny-trace":
         phase_tiny_trace(card)
+    if args.only == "tiny-witness":
+        phase_tiny_witness(card)
     if args.only:
         print(card)
         return 0
@@ -3735,13 +4369,18 @@ def main() -> int:
         torch.cuda.empty_cache()  # the rank processes share the card
         phase_dp(card)
         rn50_launches = phase_clip_eval(vq_argmin, scanline_lerp, gen, card, samples)
+    torch.cuda.empty_cache()  # phase 11's rank processes share the card
+    tp_launches, tp_t = phase_tp(attention, gen, card)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the
     # stage-1 steps, the v2 CLI's first run); errors, times and bounds at
     # that path's shape. stage2_step_launches: the same count over phase 8's
     # four counted tokens-route steps, which run the two forward kernels;
-    # rn50_step_launches: one v2 step with the RN50 tower (phase 10)
+    # rn50_step_launches: one v2 step with the RN50 tower (phase 10);
+    # tp_step_launches: one rank's launches in one step of phase 11's (1, 2)
+    # grid, where its attention runs 6 heads at width 384 (the rows
+    # attention_*_tp384: that shape's errors and times)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
@@ -3751,22 +4390,32 @@ def main() -> int:
         {"name": "attention_fwd_dropout", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
-         "launches": train_launches["attention_dropout"],
+         "launches": train_launches["attention_dropout"], "tp_step_launches": tp_launches["attention_dropout"],
          "max_abs_err": errs["attention_dropout", "bf16", 0.1], **train_t["attention_fwd_dropout"]},
+        {"name": "attention_fwd_dropout_tp384", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "imagegenerator_tpu/ops/pallas/attention.py:277",
+         "launches": tp_launches["attention_dropout"], **tp_t["fwd"]},
         {"name": "attention_bwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:308",
-         "launches": train_launches["attention_bwd"],
+         "launches": train_launches["attention_bwd"], "tp_step_launches": tp_launches["attention_bwd"],
          "max_abs_err": errs["attention_bwd", "bf16", B, True, 0.1], **train_t["attention_bwd"]},
+        {"name": "attention_bwd_tp384", "route": "cuda",
+         "source": "imagegenerator_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "imagegenerator_tpu/ops/pallas/attention.py:308",
+         "launches": tp_launches["attention_bwd"], **tp_t["bwd"]},
         {"name": "layernorm_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/layernorm_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:99",
          "launches": launches["layernorm"], "stage2_step_launches": train2_launches["layernorm"],
+         "tp_step_launches": tp_launches["layernorm"],
          "max_abs_err": errs["layernorm", "f32"], **ln_t},
         {"name": "layernorm_bwd", "route": "triton",
          "source": "imagegenerator_tpu_torch/ops/kernels/layernorm.py",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:145",
-         "launches": train_launches["layernorm_bwd"], "max_abs_err": errs["layernorm_bwd", "f32"],
+         "launches": train_launches["layernorm_bwd"], "tp_step_launches": tp_launches["layernorm_bwd"],
+         "max_abs_err": errs["layernorm_bwd", "f32"],
          **train_t["layernorm_bwd"]},
         # max_abs_err: the largest score gap, as a share of the row's score
         # range, between the kernel's code and the plain version's (0 when
@@ -3786,7 +4435,7 @@ def main() -> int:
     ]
     for kernel in kernels:
         counts = [kernel[k] for k in ("launches", "stage2_step_launches", "lanczos_256px_launches",
-                                      "rn50_step_launches") if k in kernel]
+                                      "rn50_step_launches", "tp_step_launches") if k in kernel]
         if min(counts) < 1:
             raise AssertionError(f"{kernel['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))

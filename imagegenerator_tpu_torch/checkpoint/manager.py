@@ -23,7 +23,11 @@ Layout under ``directory``::
 * under data parallelism (``parallel/dp.py``) rank 0 alone writes and
   every rank then waits at a barrier, so no rank reads or resumes past a
   checkpoint that is not on disk yet; the other ranks' ``flat`` is not
-  read. Every rank restores.
+  read. Every rank restores. Under tensor parallelism the trainer hands
+  rank 0 the whole state, gathered from the model groups
+  (``convert.to_numpy``), and every rank cuts its slices from the
+  restored dict (``Stage1System.shard``): a checkpoint of a ``--tp``
+  run is the one-process dict, which loads anywhere.
 * ``save_with_aux(epoch, flat, aux)`` stores ``{"state": flat, "aux":
   aux}``: the keys get the prefixes ``state/`` and ``aux/`` (the
   trainer's EMA tree lies under ``aux/ema/``). ``restore_latest`` on such

@@ -19,6 +19,16 @@ ride in the same dict: ``step``, and per trained module m (stage 1:
 torch side they are each optimizer's ``step``, ``exp_avg`` and
 ``exp_avg_sq`` (the moments in the parameter's torch layout).
 
+The legacy LSTM text encoder crosses as a flax parameter dict too
+(``text_lstm_from_flax`` / ``text_lstm_to_flax``): flax's ``LSTMCell``
+keeps one kernel per gate and side (``ii``, ``if``, ``ig``, ``io`` on the
+input, without bias; ``hi``, ``hf``, ``hg``, ``ho`` on the hidden state,
+with bias), cell ``2n`` the forward direction of layer n and ``2n + 1``
+the backward one; ``nn.LSTM`` packs them in the order i, f, g, o into
+``weight_ih_l{n}`` and ``weight_hh_l{n}`` (``_reverse`` for the backward
+direction), ``bias_ih_l{n}`` takes the hidden side's biases and
+``bias_hh_l{n}`` is zero.
+
 The v2 models cross differently: their ``state_dict``s carry taming's
 (VQGAN) and OpenAI's (CLIP) parameter names, and the JAX package holds
 them as nested flax parameter dicts. ``v2_vqgan_from_flax`` /
@@ -44,6 +54,7 @@ import torch
 
 from imagegenerator_tpu_torch.models.bert import BertEncoder
 from imagegenerator_tpu_torch.ops.layers import BatchNorm, Conv2d, ConvTranspose2d, Dense
+from imagegenerator_tpu_torch.parallel import tp as tp_ops
 from imagegenerator_tpu_torch.train import schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1System
 from imagegenerator_tpu_torch.train.stage2 import Stage2System
@@ -156,8 +167,10 @@ def load_numpy(system, flat: dict, device=None) -> None:
 
 def to_numpy(system) -> dict:
     """The flat dict of ``system``'s tensors (inverse of ``load_numpy``),
-    with a system's step count and optimizer state."""
-    sd = system.state_dict()
+    with a system's step count and optimizer state. A system split over a
+    model group (``Stage1System.shard``) gives the whole tensors, gathered
+    from the group: every rank of the group calls it."""
+    sd = tp_ops.full_state_dict(system)
     flat = {
         flat_key: to_flax(sd[key], layout)
         for key, flat_key, layout in entries(system)
@@ -204,13 +217,14 @@ def _optimizers_to_numpy(system) -> dict:
         f"opt_state/{m}/count": np.asarray(schedules.update_count(opt), np.int32)
         for m, opt in opts.items()
     }
+    sliced = tp_ops.sharded_params(system)
     for module, p, path, layout in param_entries(system):
         state = opts[module].state.get(p) or {}
+        dim, shard = sliced.get(id(p), (None, None))
         for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
             t = state.get(key)
-            flat[f"opt_state/{module}/{name}/{path}"] = (
-                to_flax(t, layout) if t is not None else to_flax(torch.zeros_like(p), layout)
-            )
+            t = torch.zeros_like(p) if t is None else t
+            flat[f"opt_state/{module}/{name}/{path}"] = to_flax(tp_ops.gather(t, dim, shard), layout)
     return flat
 
 
@@ -411,3 +425,43 @@ def v2_state_from_leaves(leaves, step_size: float, device=None):
     from imagegenerator_tpu_torch.v2.engine import LatentState
 
     return LatentState.from_leaves(leaves, step_size, device)
+
+
+# --------------------------------------------------------- legacy LSTM
+
+_GATES = "ifgo"
+
+
+def text_lstm_from_flax(params: dict, num_layers: int) -> dict:
+    """The JAX ``TextEmbeddingLSTM``'s parameter dict -> a ``state_dict``
+    (numpy) of the port's ``TextEmbeddingLSTM``."""
+    f32 = lambda a: np.array(a, np.float32)
+    sd = {"Embed_0.weight": f32(params["Embed_0"]["embedding"]),
+          "Dense_0.weight": f32(np.asarray(params["Dense_0"]["kernel"]).T),
+          "Dense_0.bias": f32(params["Dense_0"]["bias"])}
+    for n in range(num_layers):
+        for cell, sfx in ((2 * n, ""), (2 * n + 1, "_reverse")):
+            c = params[f"LSTMCell_{cell}"]
+            sd[f"lstm.weight_ih_l{n}{sfx}"] = f32(np.concatenate([np.asarray(c[f"i{g}"]["kernel"]).T for g in _GATES]))
+            sd[f"lstm.weight_hh_l{n}{sfx}"] = f32(np.concatenate([np.asarray(c[f"h{g}"]["kernel"]).T for g in _GATES]))
+            sd[f"lstm.bias_ih_l{n}{sfx}"] = f32(np.concatenate([np.asarray(c[f"h{g}"]["bias"]) for g in _GATES]))
+            sd[f"lstm.bias_hh_l{n}{sfx}"] = np.zeros_like(sd[f"lstm.bias_ih_l{n}{sfx}"])
+    return sd
+
+
+def text_lstm_to_flax(sd: dict, num_layers: int) -> dict:
+    """The inverse of ``text_lstm_from_flax``; the two bias vectors of a
+    direction are summed into the hidden side's biases."""
+    arr = lambda t: t.detach().float().cpu().numpy() if torch.is_tensor(t) else np.asarray(t, np.float32)
+    params = {"Embed_0": {"embedding": arr(sd["Embed_0.weight"])},
+              "Dense_0": {"kernel": arr(sd["Dense_0.weight"]).T.copy(), "bias": arr(sd["Dense_0.bias"])}}
+    for n in range(num_layers):
+        for cell, sfx in ((2 * n, ""), (2 * n + 1, "_reverse")):
+            w_ih, w_hh = (np.split(arr(sd[f"lstm.weight_{s}_l{n}{sfx}"]), 4) for s in ("ih", "hh"))
+            bias = np.split(arr(sd[f"lstm.bias_ih_l{n}{sfx}"]) + arr(sd[f"lstm.bias_hh_l{n}{sfx}"]), 4)
+            c = {}
+            for k, g in enumerate(_GATES):
+                c[f"i{g}"] = {"kernel": w_ih[k].T.copy()}
+                c[f"h{g}"] = {"kernel": w_hh[k].T.copy(), "bias": bias[k]}
+            params[f"LSTMCell_{cell}"] = c
+    return params

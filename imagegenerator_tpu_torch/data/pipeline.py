@@ -14,7 +14,10 @@ The epoch's order is ``np.random.default_rng((seed, epoch)).permutation``,
 as in the JAX package: the same ``(seed, epoch)`` serves the same
 captions in the same order. Under data parallelism every rank shuffles
 its own slice of the manifest with the same generator, and ``batch_size``
-is per rank; the ranks must take as many steps as each other, or a
+is per rank; on a tensor-parallel grid the slice is the data index's
+(the dataset's ``host_index`` / ``host_count``, which ``train.cli`` sets
+from ``parallel/mesh.py``), so the ranks of a model group read the same
+rows. The ranks must take as many steps as each other, or a
 collective would wait for ever, so each epoch starts by checking that
 they do (``parallel/dp.py::check_same_on_all_ranks``).
 """

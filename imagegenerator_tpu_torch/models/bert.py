@@ -12,6 +12,23 @@ the dtype cast), the attention probabilities (inside the kernel with
 ``fused_attention``), after the attention-out Dense and after the output
 Dense.
 
+Where a training forward's dropout comes from is a ``Draws``: masks
+drawn from a device generator as the forward reaches each site, or
+replayed from masks drawn beforehand (``BertEncoder.draw``: a recomputed
+forward under remat must see the masks of the first). ``Draws.rows``
+addresses the masks by the global batch row, so a forward over a slice
+of a batch draws (or keeps) the whole batch's masks and uses its rows.
+
+Tensor parallelism (``shard_model``): the query, key, value and
+intermediate Dense layers become column-parallel and the two output
+Dense layers row-parallel (``parallel/tp.py``), the attention runs the
+rank's ``num_heads / tp`` heads on a packed width ``hidden / tp``, and
+the embeddings and every LayerNorm stay whole, so the LayerNorm kernels
+run unchanged on every rank. The attention-prob dropout stays addressed
+by the global (row, head): the fused kernel's seed takes the shard's row
+and head offsets (``seed + row * 1000003 + head * 7919`` is linear in
+both), the unfused path keeps its heads of the whole mask.
+
 Dtype flow, as in the JAX encoder: embeddings are summed in f32 and
 normalised in f32, the result is cast to the compute dtype before layer
 0, every Dense computes in the compute dtype, and a LayerNorm returns
@@ -24,16 +41,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagegenerator_tpu_torch.ops.dropout import bits_dropout, dropout
+from imagegenerator_tpu_torch.ops.dropout import apply_keep, keep_mask, keep_probability
 from imagegenerator_tpu_torch.ops.gelu import gelu_exact_output_bwd
 from imagegenerator_tpu_torch.ops.kernels import attention as attn_kernel
 from imagegenerator_tpu_torch.ops.kernels import layernorm as ln_kernel
 from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.parallel import tp as tp_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,15 +113,72 @@ class LayerNorm(nn.Module):
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
-def _dropout(cfg: BertConfig, x, deterministic: bool, generator):
+@dataclasses.dataclass
+class Draws:
+    """Where a training forward's randomness comes from. ``generator``
+    draws the keep masks on the ids' device as the forward reaches each
+    site; ``masks``, where given, is an iterator of keep masks drawn
+    beforehand, in the forward's order, used instead. ``seeds`` gives the
+    fused attention's int32 seeds: a CPU ``torch.Generator`` (so the draw
+    needs no device sync) or an iterator of ints. ``rows = (offset,
+    total)``: the forward runs rows ``[offset, offset + B)`` of a batch of
+    ``total``; every mask is (or was) drawn for all ``total`` rows and all
+    heads, and the forward keeps its own."""
+
+    generator: Any = None
+    seeds: Any = None
+    masks: Any = None
+    rows: tuple | None = None
+
+
+def _fold_seed(seed: int, row: int, head: int) -> int:
+    """A shard's seed: the kernel's salt ``seed + row * 1000003 + head *
+    7919`` is linear in row and head (wrapping int32), so the offsets of a
+    shard fold into its seed."""
+    return ((seed + row * 1000003 + head * 7919 + 2**31) % 2**32) - 2**31
+
+
+def _next_seed(seeds) -> int:
+    if seeds is None:
+        raise ValueError("BERT: fused attention with dropout draws its seed from host_generator, which is None")
+    if isinstance(seeds, torch.Generator):
+        return int(torch.randint(-2**31, 2**31, (), generator=seeds))
+    return next(seeds)
+
+
+def _bits(cfg: BertConfig):
+    return None if cfg.dropout_bits == 32 else cfg.dropout_bits
+
+
+def _dropout(cfg: BertConfig, x, deterministic: bool, draws: Draws, heads=None):
     """A hidden, embedding or (unfused) attention-prob dropout site:
     ``nn.Dropout`` at the 32-bit default, ``bits_dropout`` at
-    ``dropout_bits`` 16 or 8."""
-    if deterministic:
+    ``dropout_bits`` 16 or 8 (``ops/dropout.py``, the same draws). The
+    mask covers ``draws.rows``' whole batch and, at a prob site,
+    ``heads = (slice, total)``'s every head; x takes its part."""
+    if deterministic or cfg.dropout_rate == 0.0:
         return x
-    if cfg.dropout_bits != 32:
-        return bits_dropout(x, cfg.dropout_rate, cfg.dropout_bits, generator)
-    return dropout(x, cfg.dropout_rate, generator)
+    if draws.masks is not None:
+        keep = next(draws.masks)
+    else:
+        shape = list(x.shape)
+        if draws.rows is not None:
+            shape[0] = draws.rows[1]
+        if heads is not None:
+            shape[1] = heads[1]
+        keep = keep_mask(shape, cfg.dropout_rate, _bits(cfg), draws.generator, x.device)
+    if draws.rows is not None:
+        keep = keep[draws.rows[0]:draws.rows[0] + x.shape[0]]
+    if heads is not None:
+        keep = keep[:, heads[0]]
+    return apply_keep(x, keep, keep_probability(cfg.dropout_rate, _bits(cfg)))
+
+
+def _fused(cfg: BertConfig, is_cuda: bool, seq_len: int) -> bool:
+    """Whether attention takes the fused kernels: on the card always
+    (``fused_attention`` set), on the CPU at the JAX package's shapes."""
+    return cfg.fused_attention and (
+        is_cuda or attn_kernel.supported(seq_len, cfg.hidden_size, cfg.num_heads))
 
 
 def _embedding(n, d, device, generator):
@@ -142,33 +218,31 @@ class _Attention(nn.Module):
     def __init__(self, cfg, dtype, kw):
         super().__init__()
         self.cfg = cfg
+        self.shard = None  # a ModelShard under tensor parallelism
         self.self = _SelfAttentionProj(cfg.hidden_size, dtype, kw)
         self.output = _DenseLN(cfg.hidden_size, cfg.hidden_size, cfg, dtype, kw)
 
-    def context(self, x, mask, deterministic=True, generator=None, host_generator=None):
+    def context(self, x, mask, deterministic=True, draws=None):
         """Attention context before the output Dense, as the JAX
-        ``_SelfAttention`` computes it on either path. With dropout on,
-        the fused kernel's int32 seed is drawn from ``host_generator`` (a
-        CPU generator, so the draw needs no device-to-host sync, or an
-        iterator of seeds), the unfused path's mask from ``generator``."""
-        cfg = self.cfg
-        B, T, h = x.shape
-        nh = cfg.num_heads
+        ``_SelfAttention`` computes it on either path, over this rank's
+        heads under tensor parallelism. With dropout on, the fused
+        kernel's int32 seed comes from ``draws.seeds``, the unfused path's
+        mask from ``draws``."""
+        cfg, shard = self.cfg, self.shard
+        B, T, _ = x.shape
+        nh, head0 = cfg.num_heads, 0
+        if shard is not None:
+            x = tp_ops.copy_to_model(x, shard.group)
+            nh, head0 = nh // shard.size, shard.index * (nh // shard.size)
         q, k, v = self.self.query(x), self.self.key(x), self.self.value(x)
+        h = q.shape[-1]
         # On the card the kernel takes the call or raises; only a CPU
         # tensor falls back to einsum off the JAX package's shapes.
-        if cfg.fused_attention and (q.is_cuda or attn_kernel.supported(T, h, nh)):
+        if _fused(cfg, q.is_cuda, T):
             rate, seed = (0.0 if deterministic else cfg.dropout_rate), 0
             if rate > 0.0:
-                if host_generator is None:
-                    raise ValueError(
-                        "BERT: fused attention with dropout draws its seed "
-                        "from host_generator, which is None"
-                    )
-                if isinstance(host_generator, torch.Generator):
-                    seed = int(torch.randint(-2**31, 2**31, (), generator=host_generator))
-                else:
-                    seed = next(host_generator)
+                row0 = 0 if draws.rows is None else draws.rows[0]
+                seed = _fold_seed(_next_seed(draws.seeds), row0, head0)
             return attn_kernel.fused_attention(
                 q, k, v, mask, num_heads=nh, dropout_rate=rate, seed=seed
             )
@@ -181,7 +255,7 @@ class _Attention(nn.Module):
                 mask[:, None, None, :] > 0, logits, torch.finfo(logits.dtype).min
             )
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        probs = _dropout(cfg, probs, deterministic, generator)
+        probs = _dropout(cfg, probs, deterministic, draws, (slice(head0, head0 + nh), cfg.num_heads))
         dt = torch.promote_types(probs.dtype, v.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), split(v).to(dt))
         return ctx.reshape(B, T, h)
@@ -191,23 +265,38 @@ class _Layer(nn.Module):
     def __init__(self, cfg, dtype, kw):
         super().__init__()
         self.cfg = cfg
+        self.shard = None
         self.attention = _Attention(cfg, dtype, kw)
         self.intermediate = nn.Module()
         self.intermediate.dense = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype, **kw)
         self.output = _DenseLN(cfg.intermediate_size, cfg.hidden_size, cfg, dtype, kw)
 
-    def forward(self, x, mask, deterministic=True, generator=None, host_generator=None):
+    def forward(self, x, mask, deterministic=True, draws=None):
         cfg, out = self.cfg, self.attention.output
-        ctx = self.attention.context(x, mask, deterministic, generator, host_generator)
-        attn = _dropout(cfg, out.dense(ctx), deterministic, generator)
+        ctx = self.attention.context(x, mask, deterministic, draws)
+        attn = _dropout(cfg, out.dense(ctx), deterministic, draws)
         x = out.LayerNorm(x + attn)
-        y = self.intermediate.dense(x)
+        h = x if self.shard is None else tp_ops.copy_to_model(x, self.shard.group)
+        y = self.intermediate.dense(h)
         if cfg.gelu_output_bwd and not cfg.gelu_approximate:
             y = gelu_exact_output_bwd(y)
         else:
             y = F.gelu(y, approximate="tanh" if cfg.gelu_approximate else "none")
-        y = _dropout(cfg, self.output.dense(y), deterministic, generator)
+        y = _dropout(cfg, self.output.dense(y), deterministic, draws)
         return self.output.LayerNorm(x + y)
+
+
+@dataclasses.dataclass
+class Predrawn:
+    """Every mask and seed of one training forward, drawn before it
+    (``BertEncoder.draw``); ``draws(rows)`` replays them, as often as a
+    recomputed forward needs."""
+
+    masks: list
+    seeds: list
+
+    def draws(self, rows=None) -> Draws:
+        return Draws(masks=iter(self.masks), seeds=iter(self.seeds), rows=rows)
 
 
 class BertEncoder(nn.Module):
@@ -224,11 +313,14 @@ class BertEncoder(nn.Module):
         )
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                deterministic=True, generator=None, host_generator=None):
+                deterministic=True, generator=None, host_generator=None, draws=None):
         """``deterministic=False`` turns dropout on: masks drawn from
         ``generator`` (on the ids' device), the fused attention's int32
         seeds, one per layer, from ``host_generator``: a CPU
-        ``torch.Generator`` or an iterator of seeds."""
+        ``torch.Generator`` or an iterator of seeds. ``draws`` (a
+        ``Draws``) replaces both."""
+        if draws is None:
+            draws = Draws(generator, host_generator)
         T = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -239,12 +331,44 @@ class BertEncoder(nn.Module):
             + e.position_embeddings(pos)
             + e.token_type_embeddings(token_type_ids)
         )
-        x = _dropout(self.config, e.LayerNorm(x), deterministic, generator)
+        x = _dropout(self.config, e.LayerNorm(x), deterministic, draws)
         if self.dtype is not None:
             x = x.to(self.dtype)
         for layer in self.encoder.layer:
-            x = layer(x, attention_mask, deterministic, generator, host_generator)
+            x = layer(x, attention_mask, deterministic, draws)
         return x
+
+    def draw(self, batch: int, seq_len: int, device, generator=None, host_generator=None) -> Predrawn:
+        """The masks and seeds a training forward over ``batch`` rows of
+        ``seq_len`` tokens on ``device`` would draw from these generators,
+        drawn now in its order (the same draws, bit for bit)."""
+        cfg, masks, seeds = self.config, [], []
+        if cfg.dropout_rate == 0.0:
+            return Predrawn(masks, seeds)
+        bits = _bits(cfg)
+        hidden = lambda: keep_mask((batch, seq_len, cfg.hidden_size), cfg.dropout_rate, bits, generator, device)
+        masks.append(hidden())
+        fused = _fused(cfg, torch.device(device).type == "cuda", seq_len)
+        for _ in self.encoder.layer:
+            if fused:
+                seeds.append(_next_seed(host_generator))
+            else:
+                masks.append(keep_mask((batch, cfg.num_heads, seq_len, seq_len), cfg.dropout_rate, bits,
+                                       generator, device))
+            masks.extend((hidden(), hidden()))
+        return Predrawn(masks, seeds)
+
+    def shard_model(self, shard) -> None:
+        """Split the encoder over a model group (``parallel/tp.py``
+        ``ModelShard``), in place, by ``tp.shard_dim``'s rules: each rank
+        keeps its column slices of query, key, value and intermediate, its
+        row slices of the two output Dense layers, and every other tensor
+        whole."""
+        if self.config.num_heads % shard.size:
+            raise ValueError(f"{self.config.num_heads} heads do not split over {shard.size} model ranks")
+        tp_ops.shard_dense_layers(self, shard)
+        for layer in self.encoder.layer:
+            layer.shard = layer.attention.shard = shard
 
 
 def config_from_state_dict(state_dict: dict) -> BertConfig:

@@ -19,6 +19,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagegenerator_tpu_torch.ops import conv as conv_ops
+from imagegenerator_tpu_torch.parallel import tp as tp_ops
+
+class statistics_frozen:
+    """Training-mode BatchNorm layers normalise as usual but leave their
+    running statistics alone: a forward that remat recomputes must not
+    apply the momentum a second time. Reusable: a checkpointed forward
+    under the gradient penalty's double backward is recomputed more than
+    once."""
+
+    writes = True
+
+    def __enter__(self):
+        self.before, statistics_frozen.writes = statistics_frozen.writes, False
+
+    def __exit__(self, *exc):
+        statistics_frozen.writes = self.before
 
 
 def _uniform(shape, fan_in, *, device=None, generator=None) -> nn.Parameter:
@@ -94,7 +110,14 @@ class BatchNorm(nn.Module):
     mode takes the biased batch variance by flax's fast formula,
     ``max(E[x^2] - E[x]^2, 0)`` in f32 over (N, H, W), normalises with it
     and folds it into ``running_var`` as ``0.9 * old + 0.1 * batch``.
-    Output dtype is ``dtype``, or ``promote(x, f32)``."""
+    Output dtype is ``dtype``, or ``promote(x, f32)``.
+
+    ``sync``, where set, is a process group (a grid's data group): the
+    batch moments are then those of every rank's rows together, summed
+    over the group by ``parallel/tp.py::all_reduce_sum`` (differentiable
+    to the second order, which the gradient penalty takes), as JAX's GSPMD
+    step computes them over its one logical batch. Every rank holds
+    ``x``'s number of rows."""
 
     eps = 1e-5
     momentum = 0.1
@@ -107,18 +130,31 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, **f32))
         self.register_buffer("running_mean", torch.zeros(num_features, **f32))
         self.register_buffer("running_var", torch.ones(num_features, **f32))
+        self.sync = None
+        self.sync_size = 1
+
+    def _moments(self, xf):
+        """``(E[x], E[x^2])`` over (N, H, W), over the ``sync`` group's rows
+        where set."""
+        if self.sync is None:
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * self.sync_size
+        sums = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        sums = tp_ops.all_reduce_sum(sums, self.sync) / n
+        return sums[0], sums[1]
 
     def forward(self, x):
         out_dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            mean, mean_sq = self._moments(xf)
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        if self.training and statistics_frozen.writes:
             with torch.no_grad():
                 keep = 1.0 - self.momentum
                 self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
                 self.running_var.copy_(keep * self.running_var + self.momentum * var)
-        else:
+        if not self.training:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

@@ -115,46 +115,65 @@ def _unflatten_into(flat, group) -> None:
         at += t.numel()
 
 
-def all_reduce_mean(tensors) -> None:
-    """Average ``tensors`` over the ranks, in place: one flat bucket per
-    (device, dtype), one ``all_reduce`` per bucket, then a division by the
-    world size. Every rank ends with the same bits. At world size 1 it
-    returns at once."""
-    n = world()
+def all_reduce_mean(tensors, group=None) -> None:
+    """Average ``tensors`` over the ranks (of ``group``, where given: a
+    grid's data group), in place: one flat bucket per (device, dtype), one
+    ``all_reduce`` per bucket, then a division by the group's size. Every
+    rank ends with the same bits. At world size 1 it returns at once."""
+    n = world() if group is None else dist.get_world_size(group)
     if n == 1:
         return
-    for group in _buckets(tensors):
-        flat = _flat(group)
-        dist.all_reduce(flat)
+    for bucket in _buckets(tensors):
+        flat = _flat(bucket)
+        dist.all_reduce(flat, group=group)
         flat.div_(n)
-        _unflatten_into(flat, group)
+        _unflatten_into(flat, bucket)
 
 
-def broadcast_state(modules, optimizers=(), src: int = 0) -> None:
+def broadcast_state(modules, optimizers=(), src: int = 0, grid=None) -> None:
     """Copy rank ``src``'s parameters and buffers of ``modules``, and the
     state tensors of ``optimizers`` (Adam's moments and counts), to every
     rank, one bucket per (device, dtype). Optimizer state that is not made
     yet (before the first step) is left alone; the ranks hold the same
-    structure, since they take the same steps. At world size 1 it
-    returns at once."""
+    structure, since they take the same steps. On a ``grid``
+    (``parallel/mesh.py``) whose model axis splits tensors, a slice and its
+    moments go within the data group, from its data index 0, and only the
+    whole tensors from ``src``. At world size 1 it returns at once."""
     if world() == 1:
         return
-    tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
+    from imagegenerator_tpu_torch.parallel import tp
+
+    sliced = set()
+    if grid is not None and grid.model > 1:
+        for m in modules:
+            sliced |= set(tp.sharded_params(m))
+    whole, parts = [], []
+    for m in modules:
+        for t in (*m.parameters(), *m.buffers()):
+            (parts if id(t) in sliced else whole).append(t)
     for opt in optimizers:
-        for state in opt.state.values():
-            tensors.extend(v for v in state.values() if torch.is_tensor(v))
+        for p, state in opt.state.items():
+            for v in state.values():
+                if torch.is_tensor(v):
+                    (parts if id(p) in sliced and v.dim() else whole).append(v)
+    _broadcast(whole, src, None)
+    if parts and grid.data_group is not None:
+        _broadcast(parts, grid.model_index, grid.data_group)
+
+
+def _broadcast(tensors, src, group) -> None:
     with torch.no_grad():
-        for group in _buckets(tensors):
-            flat = _flat(group)
+        for bucket in _buckets(tensors):
+            flat = _flat(bucket)
             if flat.device.type == "cpu" and dist.get_backend() == "nccl":
                 # Adam's step counts live on the CPU, which NCCL cannot reach:
                 # they travel through this rank's card
                 on_card = flat.to(torch.cuda.current_device())
-                dist.broadcast(on_card, src)
+                dist.broadcast(on_card, src, group=group)
                 flat = on_card.cpu()
             else:
-                dist.broadcast(flat, src)
-            _unflatten_into(flat, group)
+                dist.broadcast(flat, src, group=group)
+            _unflatten_into(flat, bucket)
 
 
 def barrier() -> None:

@@ -30,9 +30,21 @@ metrics; every rank resumes.
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of the training
 loop, one file per rank (``utils/profiling.py``).
 
+Tensor parallelism (stage 1), over the ranks torchrun starts::
+
+    torchrun --standalone --nproc_per_node 4 -m imagegenerator_tpu_torch.train.cli \
+        --multihost --tp 2 --stage 1 --fused_attn --fused_ln ...
+
+``--tp N`` lays the ranks out as a (world / N, N) data x model grid
+(``parallel/mesh.py``): the in-step BERT is split Megatron-style over
+each model group and the step is the one-process step on the global
+batch (``Stage1System.shard``); each data index reads its own slice of
+the manifest and ``--batch_size`` is per data index, as in the JAX CLI,
+where it is per data-parallel shard. N must divide the world size. With
+``--device cuda:0`` the ranks share one card over gloo.
+
 Where the JAX CLI differs: ``--device`` (default ``cuda``, which must be
-available); no ``--rng_impl`` (an XLA knob); ``--tp > 1`` exits, tensor
-parallelism is not ported yet.
+available); no ``--rng_impl`` (an XLA knob).
 """
 
 from __future__ import annotations
@@ -136,20 +148,17 @@ def get_parser() -> argparse.ArgumentParser:
                         "bytes at <= 0.5/255 quantization after the resample. "
                         "float32: normalised on the host, 4x the bytes")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (stage 1): not ported yet, any "
-                        "value above 1 exits")
+                   help="tensor-parallel degree (stage 1): splits the in-step BERT "
+                        "Megatron-style over a (data, model) grid of the ranks "
+                        "(parallel/mesh.py); the rank count must be divisible by "
+                        "this. 1 = pure data parallelism")
     return p
-
-
-def _refuse_unported(args) -> None:
-    if args.tp > 1:
-        raise SystemExit("--tp > 1: tensor parallelism is not ported yet "
-                         "(ROADMAP.md queue 1, 'remat and TP')")
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.tp > 1 and args.stage != 1:
+        raise SystemExit("--tp applies to stage 1 (the in-step BERT)")
     try:
         _run(args)
     finally:
@@ -172,7 +181,7 @@ def _run(args):
     from imagegenerator_tpu_torch.data.storage import open_store
     from imagegenerator_tpu_torch.data.tokenizer import make_tokenizer
     from imagegenerator_tpu_torch.models import bert
-    from imagegenerator_tpu_torch.parallel import dp
+    from imagegenerator_tpu_torch.parallel import dp, mesh
     from imagegenerator_tpu_torch.train import stage1 as s1
     from imagegenerator_tpu_torch.train import stage2 as s2
     from imagegenerator_tpu_torch.train.trainer import Stage1Trainer, Stage2Trainer, TrainerOptions
@@ -184,6 +193,14 @@ def _run(args):
         device = dp.init_from_env(args.device) if args.multihost else entry_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}") from e
+    grid = None
+    if args.tp > 1:
+        try:
+            grid = mesh.make_grid(args.tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+        print(f"[tp] rank {dp.rank()} of {dp.world()}: data index {grid.data_index} of {grid.data}, "
+              f"model index {grid.model_index} of {grid.model}", flush=True)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
 
     # Pretrained text encoder: its inferred architecture flows into the
@@ -235,10 +252,11 @@ def _run(args):
         cfg = s2.Stage2Config.tiny(**tiny_kw) if args.tiny else s2.Stage2Config(lr=args.lr, **common)
 
     # the dataset's image size follows the config's resolution; each rank
-    # reads its own slice of the manifest
+    # (on a grid: each data index) reads its own slice of the manifest
+    shard, shards = (dp.rank(), dp.world()) if grid is None else (grid.data_index, grid.data)
     dataset = CocoCaptions(open_store(args.data), args.root, args.ann_file,
-                           image_size=cfg.resolution, host_index=dp.rank(),
-                           host_count=dp.world(), image_dtype=args.image_dtype)
+                           image_size=cfg.resolution, host_index=shard,
+                           host_count=shards, image_dtype=args.image_dtype)
     tokenizer = make_tokenizer(args.tokenizer, args.seq_len, cfg)
     loader = DataLoader(dataset, tokenizer, batch_size=args.batch_size, seed=args.seed,
                         device=device)
@@ -254,11 +272,11 @@ def _run(args):
 
     if args.stage == 1:
         system = s1.Stage1System(cfg, device=device, generator=init)
-        trainer = Stage1Trainer(system, loader, options)
-        start_epoch = trainer.init_state()
-        if bert_state is not None and start_epoch == 0:
+        if bert_state is not None and CheckpointManager(options.checkpoint_dir).latest_epoch() < 0:
             # fresh runs only: a resumed checkpoint carries the fine-tuned weights
             system.encoder.load_state_dict(bert_state)
+        trainer = Stage1Trainer(system, loader, options, grid=grid)
+        start_epoch = trainer.init_state()
         with prof:
             trainer.fit(start_epoch)
         return

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from imagegenerator_tpu_torch import convert
+from imagegenerator_tpu_torch.parallel import tp
 
 # the trained modules each stage's ``sample`` reads (stage 2 samples
 # through the frozen stack, of which nothing trains)
@@ -62,9 +63,25 @@ def swap_in(system, ema: dict) -> None:
 
 
 def to_numpy(ema: dict, system) -> dict:
-    """The EMA in the JAX package's layout, keyed as it is."""
+    """The EMA in the JAX package's layout, keyed as it is. The averages
+    of a system split over a model group are gathered whole (every rank of
+    the group calls it)."""
     live = tracked(system, {k.split("/", 1)[0] for k in ema})
-    return {k: convert.to_flax(e, live[k][1]) for k, e in ema.items()}
+    sliced = tp.sharded_params(system)
+    out = {}
+    for k, e in ema.items():
+        p, layout = live[k]
+        out[k] = convert.to_flax(tp.gather(e, *sliced.get(id(p), (None, None))), layout)
+    return out
+
+
+def shard(ema: dict, system) -> dict:
+    """A whole EMA (of the system before ``Stage1System.shard``) cut to the
+    slices the sharded ``system`` holds."""
+    live = tracked(system, {k.split("/", 1)[0] for k in ema})
+    sliced = tp.sharded_params(system)
+    return {k: tp.shard_tensor(e, *sliced.get(id(live[k][0]), (None, None))).clone()
+            for k, e in ema.items()}
 
 
 def from_numpy(flat: dict, system, device=None) -> dict:

@@ -42,11 +42,33 @@ Data parallelism: ``reduce`` (``parallel/dp.py::all_reduce_mean``)
 averages over the ranks where the JAX step calls ``pmean``: the critic's
 gradients before each critic update, the generator side's (encoder and
 projection included) before its update, and the four metrics. BatchNorm
-statistics stay per rank. Tensor parallelism is not in this port yet.
+statistics stay per rank.
 
-``remat`` and ``unroll_critic`` are XLA knobs. ``unroll_critic`` has no
-effect in eager PyTorch; ``remat=True`` is not ported and ``train_step``
-raises ``NotImplementedError``.
+Tensor parallelism (``shard``, the counterpart of ``shard_state_2d`` and
+``make_train_step_2d``): on a data x model grid (``parallel/mesh.py``)
+the encoder is split Megatron-style over the model group and the step is
+JAX's meshless step on the global batch, as GSPMD runs it: the loader
+gives each data index its rows; the tokens are gathered over the data
+group, the permutation and every noise draw are made for the global
+batch and each rank keeps its rows; each data index encodes its
+contiguous share of the doubled caption batch and the embeddings are
+gathered back (differentiably); BatchNorm statistics are those of the
+global batch (``BatchNorm.sync``); the KL term, a sum over rows, is
+scaled by the data size so that the average over the data group is the
+global sum. ``reduce`` then averages over the data group only, for every
+parameter: a shard's gradient over the ranks that hold the same shard.
+Adam's moments follow their parameter's shard.
+
+``remat`` wraps the JAX package's ``jax.checkpoint`` sites in
+``ops/remat.py::remat``: the critic's image tower (real, fake and the
+GP's interpolation), its full forward in the generator step, and the
+hoisted text forward, whose dropout masks and seeds are drawn before it
+(``BertEncoder.draw``) so the recomputation replays them.
+``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
+
+A ``noise`` dict may also replay the hoisted text forward's dropout:
+``text_masks``, the keep masks of the doubled (or matched) caption batch
+in the forward's order, with ``attn_seeds`` for the fused attention.
 """
 
 from __future__ import annotations
@@ -57,10 +79,12 @@ from typing import Any
 import torch
 from torch import nn
 
-from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
+from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder, Draws, Predrawn
 from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
 from imagegenerator_tpu_torch.models.stackgan import StageIDiscriminator, StageIGenerator
-from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.ops.layers import BatchNorm, Dense
+from imagegenerator_tpu_torch.ops.remat import remat as remat_fn
+from imagegenerator_tpu_torch.parallel import tp as tp_ops
 from imagegenerator_tpu_torch.train import losses, schedules
 from imagegenerator_tpu_torch.utils.device import entry_device
 
@@ -119,21 +143,22 @@ class Stage1Config:
         return cls(**defaults)
 
 
-def critic_loss(critic, real, fake, tem, tem_mis, gp_eps, lambda_gp):
+def critic_loss(critic, real, fake, tem, tem_mis, gp_eps, lambda_gp, remat=False):
     """One critic iteration's loss, with its graph: the image tower in
     training mode on ``real``, ``fake``, then the GP's interpolation, in
     that order; tower(real) scored against ``tem`` and ``tem_mis``.
     Returns ``(mean([s_mis, s_fake]) - mean(s_real) + lambda_gp * gp,
-    gp)``."""
+    gp)``. ``remat`` recomputes each tower pass in the backward."""
 
     def head(feat, t):
         return critic.score(feat, t).reshape(-1).float()
 
-    feat_real = critic.features(real)
-    feat_fake = critic.features(fake)
+    features = (lambda images: remat_fn(critic.features, images)) if remat else critic.features
+    feat_real = features(real)
+    feat_fake = features(fake)
     s_real, s_mis, s_fake = head(feat_real, tem), head(feat_real, tem_mis), head(feat_fake, tem)
     gp, _ = losses.gradient_penalty_aux(
-        lambda images: (head(critic.features(images), tem), None), real, fake, eps=gp_eps
+        lambda images: (head(features(images), tem), None), real, fake, eps=gp_eps
     )
     return losses.wgan_critic_loss(s_real, torch.cat([s_mis, s_fake])) + lambda_gp * gp, gp
 
@@ -170,7 +195,36 @@ class Stage1System(nn.Module):
         )
         self.step = 0
         self._optimizers = None
+        self.grid = None
         self.eval()
+
+    def shard(self, grid) -> None:
+        """Place the system on a data x model grid (``parallel/mesh.py``),
+        in place: the encoder split over the model group (with its AdamW
+        moments, where it has taken steps), the generator's and critic's
+        BatchNorm statistics over the data group. ``train_step`` then
+        runs the grid step; pass it ``reduce`` over the data group."""
+        if self.grid is not None:
+            raise RuntimeError("the system is on a grid already")
+        self.grid = grid
+        if grid.data > 1:
+            for module in (self.generator, self.critic):
+                for bn in module.modules():
+                    if isinstance(bn, BatchNorm):
+                        bn.sync, bn.sync_size = grid.data_group, grid.data
+        if grid.model == 1:
+            return
+        state = {name: self.optimizers[name.split(".", 1)[0]].state.get(p) for name, p in self.named_parameters()}
+        self.encoder.shard_model(tp_ops.ModelShard(grid.model_index, grid.model, grid.model_group))
+        self._optimizers = None
+        sliced = tp_ops.sharded_keys(self)
+        for name, p in self.named_parameters():
+            st = state.get(name)
+            if st:
+                dim, shard = sliced.get(name, (None, None))
+                self.optimizers[name.split(".", 1)[0]].state[p] = {
+                    k: (tp_ops.shard_tensor(v, dim, shard).clone() if k != "step" else v.clone())
+                    for k, v in st.items()}
 
     @property
     def optimizers(self) -> dict:
@@ -199,11 +253,11 @@ class Stage1System(nn.Module):
         opt.step()
 
     def encode_text(self, tokens, mask, deterministic=True, generator=None,
-                    host_generator=None):
+                    host_generator=None, draws=None):
         """tokens -> tem: CLS hidden state -> projection."""
         hidden = self.encoder(
             tokens, mask, deterministic=deterministic, generator=generator,
-            host_generator=host_generator,
+            host_generator=host_generator, draws=draws,
         )
         return self.projection(hidden[:, 0, :].float())
 
@@ -234,7 +288,8 @@ class Stage1System(nn.Module):
     def _critic_update(self, real, fake, tem, tem_mis, gp_eps, reduce):
         """One critic iteration's loss and Adam update; returns
         ``(loss, gp)`` detached."""
-        loss, gp = critic_loss(self.critic, real, fake, tem, tem_mis, gp_eps, self.config.lambda_gp)
+        c = self.config
+        loss, gp = critic_loss(self.critic, real, fake, tem, tem_mis, gp_eps, c.lambda_gp, c.remat)
         self.optimizers["critic"].zero_grad(set_to_none=True)
         loss.backward()
         reduce([p.grad for p in self.critic.parameters()])
@@ -245,45 +300,76 @@ class Stage1System(nn.Module):
         """One optimizer step, in place. ``batch``: ``input_ids``,
         ``attention_mask`` ``(B, T)`` int and ``image`` ``(B, 64, 64, 3)``
         in [-1, 1] (f32) or uint8 (normalised on the device as
-        ``x * 2/255 - 1``). Returns ``{loss_critic, loss_gen, gp, kl}`` as
-        0-d tensors: the last critic iteration's loss and penalty, the
+        ``x * 2/255 - 1``); on a grid, this data index's rows of the
+        global batch. Returns ``{loss_critic, loss_gen, gp, kl}`` as 0-d
+        tensors: the last critic iteration's loss and penalty, the
         generator loss and its KL term. ``reduce(tensors)``, where given,
-        averages a list of tensors over the data-parallel ranks in place."""
+        averages a list of tensors over the data-parallel ranks in place
+        (on a grid: over the data group)."""
         c = self.config
-        if c.remat:
-            raise NotImplementedError("Stage1Config.remat is not ported to PyTorch")
         reduce = reduce or (lambda tensors: None)
         noise = noise or {}
         tokens, mask, real = batch["input_ids"], batch["attention_mask"], batch["image"]
         if real.dtype == torch.uint8:
             real = real.float() * (2.0 / 255.0) - 1.0
         bsz, dev = tokens.shape[0], tokens.device
+        grid = self.grid
+        data, d = (grid.data, grid.data_index) if grid is not None else (1, 0)
+        group = grid.data_group if grid is not None else None
+        B = bsz * data  # the global batch
+        mine = slice(d * bsz, (d + 1) * bsz)  # this data index's rows of it
+        gather = lambda t: tp_ops.all_gather_rows(t, group, d, data)
+        tokens_all, mask_all = (tokens, mask) if data == 1 else (gather(tokens), gather(mask))
 
         def draw(name, i, fn):
-            return noise[name][i] if name in noise else fn()
+            # each draw is the global batch's; a data index keeps its rows
+            t = noise[name][i] if name in noise else fn()
+            return t if data == 1 else t[mine]
 
         perm = noise.get("perm")
         if perm is None:
-            perm = torch.randperm(bsz, generator=generator, device=dev)
-        tokens_2b = torch.cat([tokens, tokens[perm]])
-        mask_2b = torch.cat([mask, mask[perm]])
+            perm = torch.randperm(B, generator=generator, device=dev)
         seeds = iter(noise["attn_seeds"]) if "attn_seeds" in noise else host_generator
-        text = dict(deterministic=not c.text_dropout, generator=generator, host_generator=seeds)
         reuse_mis = c.text_reuse_mismatched
         if reuse_mis is None:
             reuse_mis = not c.text_dropout  # exact when dropout is off
 
+        def text(ids, ids_mask, predrawn=None):
+            """The text forward over the global batch ``ids``: this data
+            index encodes its contiguous share and the embeddings of all
+            rows are gathered back; ``predrawn`` replays its dropout."""
+            n = ids.shape[0] // data
+            share = slice(d * n, (d + 1) * n)
+            rows = None if data == 1 else (d * n, ids.shape[0])
+            ids, ids_mask = ids[share], ids_mask[share]
+            if predrawn is None and c.remat and c.text_dropout:
+                predrawn = self.encoder.draw(n * data, ids.shape[1], dev, generator, seeds)
+            if predrawn is not None:
+                run = lambda i, m: self.encode_text(i, m, not c.text_dropout, draws=predrawn.draws(rows))
+            else:
+                draws = Draws(generator, seeds, rows=rows)
+                run = lambda i, m: self.encode_text(i, m, not c.text_dropout, draws=draws)
+            tem = remat_fn(run, ids, ids_mask) if c.remat else run(ids, ids_mask)
+            return tem if data == 1 else gather(tem)
+
         def text_both():
-            tem_2b = self.encode_text(tokens_2b, mask_2b, **text)
-            return tem_2b[:bsz], tem_2b[bsz:]
+            tem_2b = text(torch.cat([tokens_all, tokens_all[perm]]), torch.cat([mask_all, mask_all[perm]]),
+                          replayed)
+            return tem_2b[:B][mine], tem_2b[B:][mine]
+
+        replayed = None
+        if "text_masks" in noise:
+            if c.text_resample_per_iter:
+                raise ValueError("noise['text_masks'] replays the hoisted text forward only")
+            replayed = Predrawn(list(noise["text_masks"]), list(noise.get("attn_seeds", ())))
 
         self.train()
         try:
             tems = None
             if not c.text_resample_per_iter:
                 if reuse_mis:
-                    tem = self.encode_text(tokens, mask, **text)
-                    tems = (tem, tem[perm])
+                    tem_all = text(tokens_all, mask_all, replayed)
+                    tems = (tem_all[mine], tem_all[perm][mine])
                 else:
                     tems = text_both()
             for i in range(c.n_critic):
@@ -294,11 +380,11 @@ class Stage1System(nn.Module):
                         tems = text_both()
                 tem, tem_mis = (t.detach() for t in tems)
                 ca_eps = draw("ca_eps", i, lambda: torch.randn(
-                    (bsz, c.c_dim), generator=generator, device=dev))
+                    (B, c.c_dim), generator=generator, device=dev))
                 z = draw("z", i, lambda: torch.randn(
-                    (bsz, c.z_dim), generator=generator, device=dev))
+                    (B, c.z_dim), generator=generator, device=dev))
                 gp_eps = draw("gp_eps", i, lambda: torch.rand(
-                    (bsz, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
+                    (B, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
                 with torch.no_grad():
                     fake = self._gen_forward(tem, ca_eps, z)[0]
                 loss_critic, gp = self._critic_update(real, fake, tem, tem_mis, gp_eps, reduce)
@@ -306,8 +392,11 @@ class Stage1System(nn.Module):
             # generator side, with the last iteration's CA and z noise
             tem = tems[0]
             fake, mu, sigma = self._gen_forward(tem, ca_eps, z)
-            s_fake = self.critic(fake, tem).reshape(-1).float()
+            s_fake = (remat_fn(self.critic, fake, tem) if c.remat else self.critic(fake, tem))
+            s_fake = s_fake.reshape(-1).float()
             kl = losses.kl_term(mu, sigma, c.kl_mode)
+            if data > 1:
+                kl = kl * data  # a sum over rows: the data group's average is the global sum
             loss_gen = losses.wgan_generator_loss(s_fake) + kl
             params = [p for name in GEN_SIDE for p in getattr(self, name).parameters()]
             grads = torch.autograd.grad(loss_gen, params)

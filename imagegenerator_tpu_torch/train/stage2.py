@@ -40,9 +40,11 @@ averages over the ranks where the JAX step calls ``pmean``: the critic's
 gradients before each critic update, CA2's and G2's before theirs, and
 the four metrics. BatchNorm statistics stay per rank.
 
-``remat`` and ``unroll_critic`` are XLA knobs. ``unroll_critic`` has no
-effect in eager PyTorch; ``remat=True`` is not ported and ``train_step``
-raises ``NotImplementedError``.
+``remat`` wraps the JAX package's ``jax.checkpoint`` sites in
+``ops/remat.py::remat``: the critic's image tower (real, fake and the
+GP's interpolation) and its full forward in the generator step; the
+recomputation leaves the critic's BatchNorm statistics alone.
+``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from imagegenerator_tpu_torch.models.stackgan import (
     StageIIGenerator,
 )
 from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.ops.remat import remat
 from imagegenerator_tpu_torch.train import losses, schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1Config, critic_loss
 from imagegenerator_tpu_torch.utils.device import entry_device
@@ -275,8 +278,6 @@ class Stage2System(nn.Module):
         generator loss and its KL term. ``reduce(tensors)``, where given,
         averages a list of tensors over the data-parallel ranks in place."""
         c = self.config
-        if c.remat:
-            raise NotImplementedError("Stage2Config.remat is not ported to PyTorch")
         reduce = reduce or (lambda tensors: None)
         noise = noise or {}
         real = batch["image"]
@@ -311,7 +312,7 @@ class Stage2System(nn.Module):
                     fake_64 = self._frozen_64_from_tem(tem, None, frozen)
                     fake_256 = self._gen2_forward(fake_64, tem, ca2_eps)[0]
                 loss_critic, gp = critic_loss(
-                    self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp
+                    self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp, c.remat
                 )
                 self.optimizers["critic"].zero_grad(set_to_none=True)
                 loss_critic.backward()
@@ -320,7 +321,8 @@ class Stage2System(nn.Module):
 
             # generator side, with the last iteration's noise and 64 px images
             fake_256, mu2, sigma2 = self._gen2_forward(fake_64, tem, ca2_eps)
-            s_fake = self.critic_2(fake_256, tem).reshape(-1).float()
+            s_fake = remat(self.critic_2, fake_256, tem) if c.remat else self.critic_2(fake_256, tem)
+            s_fake = s_fake.reshape(-1).float()
             kl = losses.kl_term(mu2, sigma2, c.kl_mode)
             loss_gen = losses.wgan_generator_loss(s_fake) + kl
             params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]

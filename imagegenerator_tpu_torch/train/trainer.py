@@ -16,6 +16,13 @@ shard, so the replicas draw the same permutation over their own local
 batch and the same noise and dropout seeds; the steps average gradients
 and metrics over the ranks. Each rank keeps its EMA (they agree, since the
 parameters do); rank 0 writes checkpoints, metrics and images.
+
+Under tensor parallelism (stage 1, a ``grid`` from ``parallel/mesh.py``)
+every rank restores the whole state, takes its slices
+(``Stage1System.shard``, ``ema.shard``) and then rank 0's replicated
+tensors and its data index 0's slices (``broadcast_state``); the step
+averages over the data group; a checkpoint gathers the slices whole
+(every rank takes part), so it is the same flat dict as one process's.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from imagegenerator_tpu_torch import convert
 from imagegenerator_tpu_torch.checkpoint import CheckpointManager
-from imagegenerator_tpu_torch.parallel import dp
+from imagegenerator_tpu_torch.parallel import dp, mesh
 from imagegenerator_tpu_torch.train import ema as ema_lib
 from imagegenerator_tpu_torch.utils.metrics import MetricsWriter
 from imagegenerator_tpu_torch.utils.rng import mixed_generator
@@ -56,10 +63,11 @@ class _Trainer:
 
     stage: int
 
-    def __init__(self, system, loader, options: TrainerOptions):
+    def __init__(self, system, loader, options: TrainerOptions, grid=None):
         self.system = system
         self.loader = loader
         self.opt = options
+        self.grid = grid
         self.writer = MetricsWriter(options.logdir)
         self.ckpt = (
             CheckpointManager(options.checkpoint_dir, options.save_every_epochs)
@@ -90,8 +98,9 @@ class _Trainer:
 
     def _sync_ranks(self) -> None:
         """Every rank takes rank 0's parameters, statistics and optimizer
-        state (a no-op in one process)."""
-        dp.broadcast_state([self.system], self.system.optimizers.values())
+        state (a no-op in one process); on a grid each slice comes from
+        its data index 0."""
+        dp.broadcast_state([self.system], self.system.optimizers.values(), grid=self.grid)
 
     def _seed_ema(self) -> None:
         # a fresh run, or a checkpoint of a run without EMA: the average
@@ -100,12 +109,14 @@ class _Trainer:
             self.ema = ema_lib.init_ema(self.system, self._ema_modules)
 
     def _save(self, epoch: int) -> None:
-        # rank 0 writes; the others pass an empty state to the manager's barrier
-        flat = convert.to_numpy(self.system) if dp.is_main() else {}
-        if self.ema is None or not dp.is_main():
-            self.ckpt.save(epoch, flat)
+        # rank 0 writes; the others pass an empty state to the manager's
+        # barrier. Split tensors are gathered whole, by every rank.
+        gather = self.grid is not None and self.grid.model > 1
+        flat = convert.to_numpy(self.system) if dp.is_main() or gather else {}
+        ema = ema_lib.to_numpy(self.ema, self.system) if self.ema is not None and flat else None
+        if ema is None or not dp.is_main():
+            self.ckpt.save(epoch, flat if dp.is_main() else {})
         else:
-            ema = ema_lib.to_numpy(self.ema, self.system)
             self.ckpt.save_with_aux(epoch, flat, {f"ema/{k}": v for k, v in ema.items()})
 
     def _train_step(self, batch, gstep: int) -> dict:
@@ -138,8 +149,13 @@ class Stage1Trainer(_Trainer):
     stage = 1
 
     def init_state(self) -> int:
-        """Resume where a checkpoint exists; returns the start epoch."""
+        """Resume where a checkpoint exists; returns the start epoch. On a
+        grid, the whole state restored is then cut to this rank's slices."""
         start_epoch = self._restore()
+        if self.grid is not None:
+            self.system.shard(self.grid)
+            if self.ema is not None:
+                self.ema = ema_lib.shard(self.ema, self.system)
         self._sync_ranks()
         self._seed_ema()
         return start_epoch
@@ -150,7 +166,7 @@ class Stage1Trainer(_Trainer):
             batch,
             generator=mixed_generator(self.opt.seed, gstep, self.device),
             host_generator=mixed_generator(self.opt.seed, gstep, "cpu"),
-            reduce=dp.all_reduce_mean,
+            reduce=dp.all_reduce_mean if self.grid is None else mesh.data_mean(self.grid),
         )
 
 

@@ -24,6 +24,15 @@ shape entries and BatchNorm's ``num_batches_tracked`` dropped). Images are
 NHWC, CLIP-normalised; the ResNet tower runs its convolutions on the
 same memory as NCHW tensors with ``channels_last`` strides.
 
+Tensor parallelism (``CLIP.shard_model``, the forward of JAX's
+``shard_params(clip_params, tp_mesh)``): each transformer block's
+attention and MLP are split Megatron-style over a model group
+(``parallel/tp.py``); LayerNorms, embeddings, projections and the
+ResNet tower stay whole. The packed ``in_proj_weight`` is ``(3 * width,
+width)``, q over k over v: a rank takes its head group's rows of each of
+the three (``shard_in_proj``), not a contiguous third of the packed rows,
+which would hand one rank all of q and part of k.
+
 Dtype rules are the JAX module's: parameters are f32; Dense and
 LayerNorm compute in ``dtype`` (LayerNorm's statistics in f32, its result
 in ``dtype``); attention logits and softmax are f32 and the
@@ -47,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagegenerator_tpu_torch.ops.layers import Conv2d, Dense
+from imagegenerator_tpu_torch.parallel import tp as tp_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,14 +207,19 @@ class _Attention(nn.Module):
         packed = Dense(width, 3 * width, dtype=dtype, **kw)
         self.in_proj_weight, self.in_proj_bias = packed.weight, packed.bias
         self.out_proj = Dense(width, width, dtype=dtype, **kw)
+        self.shard = None
 
     def forward(self, h):
-        B, T, C = h.shape
+        B, T, _ = h.shape
         dtype = self.dtype or h.dtype
+        heads = self.heads
+        if self.shard is not None:
+            h, heads = tp_ops.copy_to_model(h, self.shard.group), heads // self.shard.size
+        C = self.in_proj_weight.shape[0] // 3  # this rank's width
         qkv = F.linear(h.to(dtype), self.in_proj_weight.to(dtype), self.in_proj_bias.to(dtype))
-        q, k, v = (t.reshape(B, T, self.heads, C // self.heads).transpose(1, 2)
+        q, k, v = (t.reshape(B, T, heads, C // heads).transpose(1, 2)
                    for t in qkv.split(C, dim=-1))  # (B, heads, T, hd)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(C // self.heads)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(C // heads)
         if self.causal:
             mask = torch.ones((T, T), dtype=torch.bool, device=h.device).tril()
             logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
@@ -218,9 +233,29 @@ class _MLP(nn.Module):
         super().__init__()
         self.c_fc = Dense(width, 4 * width, dtype=dtype, **kw)
         self.c_proj = Dense(4 * width, width, dtype=dtype, **kw)
+        self.shard = None
 
     def forward(self, x):
+        if self.shard is not None:
+            x = tp_ops.copy_to_model(x, self.shard.group)
         return self.c_proj(quick_gelu(self.c_fc(x)))
+
+
+def shard_in_proj(t, shard):
+    """This rank's rows of a packed ``in_proj_weight`` ``(3 * width,
+    width)`` or ``in_proj_bias`` ``(3 * width,)``: its head group's slice
+    of q, of k and of v, packed again in that order."""
+    return torch.cat([tp_ops.shard_tensor(part, 0, shard) for part in t.chunk(3)])
+
+
+def _shard_block(block, shard) -> None:
+    attn, mlp = block.attn, block.mlp
+    if attn.heads % shard.size:
+        raise ValueError(f"{attn.heads} heads do not split over {shard.size} model ranks")
+    attn.in_proj_weight = nn.Parameter(shard_in_proj(attn.in_proj_weight.detach(), shard))
+    attn.in_proj_bias = nn.Parameter(shard_in_proj(attn.in_proj_bias.detach(), shard))
+    tp_ops.shard_dense_layers(block, shard)  # out_proj, c_fc, c_proj
+    attn.shard = mlp.shard = shard
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -449,6 +484,15 @@ class CLIP(nn.Module):
         self.transformer = _Transformer(c.text_width, c.text_layers, c.text_heads, True, dtype, **kw)
         self.ln_final = LayerNorm(c.text_width, dtype, device=device)
         self.text_projection = _normal((c.text_width, c.embed_dim), c.text_width ** -0.5, **kw)
+
+    def shard_model(self, shard) -> None:
+        """Split every transformer block (the ViT tower's and the text
+        tower's) over a model group (a ``parallel/tp.py`` ``ModelShard``),
+        in place, for the forward."""
+        towers = [self.transformer] + ([] if self.config.is_resnet else [self.visual.transformer])
+        for tower in towers:
+            for block in tower.resblocks:
+                _shard_block(block, shard)
 
     def encode_image(self, images):
         return self.visual(images)

@@ -327,13 +327,6 @@ def test_step_with_text_dropout_runs_and_updates_every_module(fused):
                    if k.startswith(f"params/{module}/")), module
 
 
-def test_remat_is_not_ported():
-    cfg = ts1.Stage1Config.tiny(remat=True)
-    port = ts1.Stage1System(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        port.train_step({k: torch.from_numpy(v) for k, v in _batch(cfg, False).items()})
-
-
 def test_config_matches_jax():
     keep = lambda d: {k: v for k, v in d.items() if k not in ("bert", "compute_dtype")}
     for j, t in ((js1.Stage1Config(), ts1.Stage1Config()),

@@ -348,13 +348,6 @@ def test_load_stage1_copies_the_frozen_stack():
                           f2["frozen_params/projection/kernel"])
 
 
-def test_remat_is_not_ported():
-    cfg = ts2.Stage2Config.tiny(remat=True)
-    port = ts2.Stage2System(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        port.train_step(_torch_batch(_batch(cfg, "tem", False)))
-
-
 def test_config_matches_jax():
     keep = lambda d: {k: v for k, v in d.items() if k not in ("bert", "compute_dtype")}
     for j, t in ((js2.Stage2Config(), ts2.Stage2Config()),

@@ -155,12 +155,14 @@ def test_sample_ema_needs_an_ema_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--tp", "2"], "--tp > 1: tensor parallelism is not ported yet"),
+    (["--tp", "2", "--stage", "2"], "--tp applies to stage 1 (the in-step BERT)"),
+    (["--tp", "2"], "--tp 2 does not divide 1 devices"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, flags, message):
-    with pytest.raises(SystemExit, match=re.escape(message)) as e:
+def test_cli_tp_usage_errors(tmp_path, flags, message):
+    """The JAX CLI's messages; ``--tp`` itself runs under torchrun
+    (``tests/test_torch_tp.py``)."""
+    with pytest.raises(SystemExit, match=re.escape(message)):
         cli.main(_args(str(tmp_path), str(tmp_path / "ckpt"), 1, *flags))
-    assert "ROADMAP.md" in str(e.value)
     assert not (tmp_path / "ckpt").exists()
 
 
