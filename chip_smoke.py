@@ -16,6 +16,7 @@ are).
     python3 chip_smoke.py --only tiny-witness  # phase 8 (c)'s f32 steps, card and CPU,
                                                # against float64 (phase_tiny_witness)
     python3 chip_smoke.py --only tp  # build, then phase 11 alone
+    python3 chip_smoke.py --only bench  # build, then phase 12 alone
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -105,7 +106,7 @@ non-zero exit and no result line:
    resume are checked. Then the engine at batch 4 in f32 and bf16: one
    step from the same state and draws with the kernels on and off
    (losses and the gradient of z). Then times: 20-step windows at batch
-   1 and 4 with the kernels on and off, in f32 (5 windows) and in bf16 (3
+   1 and 4 with the kernels on and off, in f32 (3 windows) and in bf16 (2
    windows), each kernel against its plain version and the library call,
    and ``torch.profiler`` over 5 steps. Then 256 px, where the image is
    larger than CLIP's 224 px and the cutouts take the lanczos path: the
@@ -226,6 +227,23 @@ non-zero exit and no result line:
    stage-2 step at batch 32: metrics at 1e-5, peak memory and step times.
    (d) CLIP ViT-B/32 split over two model ranks against one process at
    1e-5 of the largest output. (e) ``dryrun.dryrun_multichip(2)``.
+12. the bench (``--only bench``): ``python -m imagegenerator_tpu_torch.bench``
+   as a process, orchestrated over all ten targets at full width with
+   short windows (``BENCH_SHORT``: one window of 2 steps, chains of 5, 128
+   host images, 2 e2e batches). It must print one metric line per target
+   and no error or skip line, the stage-2 line last, the GEMM roofline
+   inside (0, 1.05 x the card's bf16 peak], every training and v2 line's
+   ``mfu`` inside (0, 1.05), and each line's kernel launches per step as
+   ``BENCH_LAUNCHES`` has them (stage 1: 12 attention forwards, all with
+   dropout, and 12 backwards, on the tensor cores; v2: one codebook
+   argmin). The stage-1 line's ``flops_per_step`` (kernel route: the
+   kernels' formulas) must equal the same step counted on the plain route
+   in this process within 0.1%; the bench's stage-2 step (f32 images)
+   must be within 15% of phase 8's median (uint8 images; timed here the
+   same way under ``--only bench``); then ``python -m
+   imagegenerator_tpu_torch.tools.profile_opclass --workload stage1``
+   must give the hand kernels device time and shares that sum to 100 +-
+   0.5%.
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
@@ -1696,8 +1714,8 @@ def phase_v2_times(vq_state, clip_state, vq_argmin, scanline_lerp, gen, card):
     torch.backends.cudnn.allow_tf32 = True
     step_ms = {}
     # f32 is what the CLI runs; bf16 compute with fewer windows
-    for dtype, dt, windows, batch in ((None, "f32", 5, 1), (None, "f32", 5, 4),
-                                      (torch.bfloat16, "bf16", 3, 1), (torch.bfloat16, "bf16", 3, 4)):
+    for dtype, dt, windows, batch in ((None, "f32", 3, 1), (None, "f32", 3, 4),
+                                      (torch.bfloat16, "bf16", 2, 1), (torch.bfloat16, "bf16", 2, 4)):
         engines = {tag: v2_engine(vq_state, clip_state, dtype, tag == "on") for tag in ("on", "off")}
         prompts = v2_prompts(engines["on"], batch)
         z0 = engines["on"].random_token_latent(gen, batch, 8, 8)
@@ -1851,7 +1869,7 @@ def phase_v2_lanczos_times(vq_state, clip_state, gen, card, size=V2_LANCZOS, cli
     for tag in engines:
         window(tag, 3)
     samples = {"on": [], "off": []}
-    for i in range(3):
+    for i in range(2):
         for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
             samples[tag].append(window(tag))
     step_ms = {}
@@ -4255,14 +4273,186 @@ def phase_tp(attention, gen, card):
     return counts, timed
 
 
+# ---------------------------------------------------------------- the bench
+
+# the orchestrated bench over all ten targets, at full width, with short
+# windows (the defaults: 5 or 3 windows of 8 steps, chains of 20, 768
+# host images, 4 e2e batches)
+BENCH_SHORT = {"BENCH_REPS": "1", "BENCH_STEPS": "2", "BENCH_CHAIN": "5", "BENCH_V2_CHAINS": "1",
+               "BENCH_HOST_IMAGES": "128", "BENCH_E2E_BATCHES": "2"}
+BENCH_TIMEOUT = 600  # seconds, for the whole orchestrated run
+BENCH_NAMES = {
+    "stage2": "stage2_256px_train_images_per_sec_per_chip",
+    "stage1": "stage1_64px_train_images_per_sec_per_chip",
+    "v2": "vqgan_clip_latent_opt_steps_per_sec",
+    "stage1_golden": "stage1_64px_train_golden_images_per_sec_per_chip",
+    "stage2_golden": "stage2_256px_train_golden_images_per_sec_per_chip",
+    "stage1_fast": "stage1_64px_fastpath_images_per_sec_per_chip",
+    "stage1_fast_reuse": "stage1_64px_fastpath_reuse_images_per_sec_per_chip",
+    "v2_batched": "vqgan_clip_batched_steps_per_sec",
+    "host": "host_pipeline_images_per_sec",
+    "e2e": "stage2_e2e_from_loader_images_per_sec",
+}
+# each line's kernel launches per step under the bench's defaults (none
+# named: 0): the stage-1 headline and fast variants run the fused
+# attention with dropout on the tensor-core kernels, LayerNorm on the
+# plain route (BENCH_LN=xla); golden and the stage-2 tem route launch no
+# hand kernel; v2 one codebook argmin a step (warp kernel off)
+ATTENTION_STEP = {"attention_fwd": 12, "attention_fwd_dropout": 12, "attention_fwd_mma": 12,
+                  "attention_bwd": 12, "attention_bwd_mma": 12}
+BENCH_LAUNCHES = {"stage1": ATTENTION_STEP, "stage1_fast": ATTENTION_STEP, "stage1_fast_reuse": ATTENTION_STEP,
+                  "v2": {"vq_argmin": 1}, "v2_batched": {"vq_argmin": 1}}
+BENCH_FLOPS_RTOL = 1e-3  # stage 1's count, kernel route against the plain route
+BENCH_STEP_RTOL = 0.15  # the bench's stage-2 step against phase 8's
+
+
+def stage2_step_ms(gen) -> float:
+    """Phase 8's timing of the stage-2 tem route at batch 256 (uint8
+    images, 2 warm-ups, median of 5), for ``--only bench``."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+    cfg = train2_config(True, torch.bfloat16)
+    system = Stage2System(cfg, device="cuda", generator=gen)
+    tokens = train2_batch(cfg, gen, TRAIN2_BATCH)
+    tem = {"tem": system.embed_texts(tokens["input_ids"], tokens["attention_mask"]), "image": tokens["image"]}
+    step_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for _ in range(2):
+        system.train_step(tem, generator=step_gen)
+    return statistics.median(wall_ms(lambda: system.train_step(tem, generator=step_gen), runs=1) for _ in range(5))
+
+
+def run_bench() -> tuple[list, float]:
+    """The orchestrated bench as a process: its JSON lines and wall s."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_SHORT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "imagegenerator_tpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if "[bench hb" in line and ("launch" in line or "retry" in line or "timeout" in line):
+            log(f"    {line.strip()}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"the bench exited {proc.returncode}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.strip()], wall
+
+
+def check_bench_lines(lines, peak_tflops) -> dict:
+    """One metric line per target, no error or skip line, the roofline,
+    each mfu and each line's launches per step; the lines by target."""
+    bad = [r for r in lines if "error" in r]
+    if bad:
+        raise AssertionError(f"error or skip lines: {bad}")
+    if lines[-1].get("metric") != BENCH_NAMES["stage2"] or not lines[-1].get("reemitted_headline"):
+        raise AssertionError(f"the last line is not the re-emitted stage-2 line: {lines[-1]}")
+    roof = [r for r in lines if r["metric"] == "session_gemm_roofline_tflops"]
+    if len(roof) != 1 or not 0 < roof[0]["value"] <= 1.05 * peak_tflops:
+        raise AssertionError(f"roofline line(s) {roof}, card peak {peak_tflops} TFLOP/s")
+    by_target = {}
+    for target, name in BENCH_NAMES.items():
+        found = [r for r in lines[:-1] if r["metric"] == name]
+        if len(found) != 1:
+            raise AssertionError(f"{target}: {len(found)} lines named {name}")
+        r = by_target[target] = found[0]
+        if r["backend"] != "torch" or "vs_baseline" in r or not r["value"] > 0:
+            raise AssertionError(f"{target}: {r}")
+        if target not in ("host", "e2e") and not 0 < r.get("mfu", 0) < 1.05:
+            raise AssertionError(f"{target}: mfu {r.get('mfu')} outside (0, 1.05)")
+        if target != "host":
+            want = {k: BENCH_LAUNCHES.get(target, {}).get(k, 0) for k in r["kernel_launches_per_step"]}
+            if r["kernel_launches_per_step"] != want:
+                raise AssertionError(f"{target}: launches per step {r['kernel_launches_per_step']}, "
+                                     f"expected {want}")
+    log(f"  roofline {roof[0]['value']:.2f} TFLOP/s ({roof[0].get('pct_of_paper_peak')}% of {peak_tflops})")
+    return by_target
+
+
+def phase_bench(gen, card, train2_ms=None) -> None:
+    """Phase 12: ``python -m imagegenerator_tpu_torch.bench`` over all ten
+    targets with short windows; the stage-1 FLOP count on the kernel route
+    against the plain route; the bench's stage-2 step against phase 8's;
+    ``profile_opclass --workload stage1``."""
+    import dataclasses
+
+    import torch
+
+    from imagegenerator_tpu_torch import bench
+
+    log(f"phase 12: the bench, all ten targets, windows {BENCH_SHORT}, on {card}")
+    torch.cuda.empty_cache()  # the bench's children share the card
+    t_phase = time.perf_counter()
+    lines, wall = run_bench()
+    by_target = check_bench_lines(lines, bench._peak_flops() / 1e12)
+    for target, r in by_target.items():
+        log(f"  {target}: {r['value']:.3f} {r['unit']}, per step {r['spread_per_step_ms']} ms"
+            + (f", mfu {r['mfu']}" if "mfu" in r else "")
+            + f" [{r['device']}, {r['power_limit_w']} W]")
+    log(f"  {len(by_target)} metric lines and the roofline, no error or skip line, the stage-2 line last; "
+        f"launches per step as expected; bench wall {wall:.1f} s")
+
+    # the same stage-1 step counted on the plain route: the kernel wrappers'
+    # formulas must stand in exactly for the products FlopCounterMode sees
+    cfg = bench._stage1_config()
+    plain = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert, fused_attention=False, fused_ln=False))
+    _, _, step = bench._stage1_setup(TRAIN_BATCH, config=plain)
+    step()
+    plain_flops = bench._count_flops(step)
+    del step
+    torch.cuda.empty_cache()
+    kernel_flops = by_target["stage1"]["flops_per_step"]
+    rel = abs(kernel_flops - plain_flops) / plain_flops
+    log(f"  stage1 flops_per_step: kernel route {kernel_flops:.6g} (the bench's line), plain route "
+        f"{plain_flops:.6g}, relative difference {rel:.3e} (limit {BENCH_FLOPS_RTOL:g})")
+    if rel > BENCH_FLOPS_RTOL:
+        raise AssertionError("the stage-1 FLOP count differs between the kernel and the plain route")
+
+    bench_ms = 1e3 * 256 / by_target["stage2"]["value"]
+    if train2_ms is None:
+        train2_ms = stage2_step_ms(gen)
+        torch.cuda.empty_cache()
+        how = "timed here as phase 8 times it"
+    else:
+        how = "phase 8's median in this run"
+    rel = bench_ms / train2_ms - 1
+    log(f"  stage-2 step: the bench {bench_ms:.3f} ms (f32 images), {how} {train2_ms:.3f} ms (uint8 "
+        f"images): {100 * rel:+.1f}% (limit +-{100 * BENCH_STEP_RTOL:.0f}%) [{card}]")
+    if abs(rel) > BENCH_STEP_RTOL:
+        raise AssertionError("the bench's stage-2 step is not the step phase 8 times")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "imagegenerator_tpu_torch.tools.profile_opclass",
+                           "--workload", "stage1"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"profile_opclass exited {proc.returncode}")
+    out = proc.stdout.strip().splitlines()
+    for line in out[:-1]:
+        if line.strip() and not line.startswith("traced"):
+            log(f"    {line[:150]}")
+    report = json.loads(out[-1])
+    classes = {c["class"]: c for c in report["classes"]}
+    share = sum(c["pct"] for c in report["classes"])
+    log(f"  profile_opclass --workload stage1: {report['ms_per_step']:.3f} ms of device time a step, hand "
+        f"kernels {classes['hand kernels']['ms_per_step']:.3f} ms; shares sum to {share:.3f}% "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if not classes["hand kernels"]["ms"] > 0 or abs(share - 100) > 0.5:
+        raise AssertionError("profile_opclass: no hand-kernel time, or the shares do not sum to 100%")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "d2-trace", "tiny-trace",
-                                           "tiny-witness"],
+    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "bench", "d2-trace",
+                                           "tiny-trace", "tiny-witness"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
@@ -4343,6 +4533,8 @@ def main() -> int:
         phase_clip_eval(vq_argmin, scanline_lerp, gen, card)
     if args.only == "tp":
         phase_tp(attention, gen, card)
+    if args.only == "bench":
+        phase_bench(gen, card)
     if args.only == "d2-trace":
         phase_d2_trace(card)
     if args.only == "tiny-trace":
@@ -4365,12 +4557,15 @@ def main() -> int:
     v2_launches, lanczos_launches, v2_errs, v2_t = phase_v2(vq_argmin, scanline_lerp, gen, card)
     with tempfile.TemporaryDirectory() as kept:
         samples = Path(kept) / "samples"  # phase 8's, which phase 10 scores
-        train2_launches, _, _ = phase_train2(attention, layernorm, gen, card, samples_to=samples)
+        train2_launches, train2_size, train2_times = phase_train2(attention, layernorm, gen, card,
+                                                                  samples_to=samples)
         torch.cuda.empty_cache()  # the rank processes share the card
         phase_dp(card)
         rn50_launches = phase_clip_eval(vq_argmin, scanline_lerp, gen, card, samples)
     torch.cuda.empty_cache()  # phase 11's rank processes share the card
     tp_launches, tp_t = phase_tp(attention, gen, card)
+    torch.cuda.empty_cache()  # phase 12's bench processes share the card
+    phase_bench(gen, card, train2_times["tem_ms"] if train2_size == TRAIN2_BATCH else None)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the

@@ -17,5 +17,7 @@
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; each counts its launches (``launches``,
-``bwd_launches``, and for attention ``dropout_launches``).
+``bwd_launches``, and for attention ``dropout_launches``), and attention
+and ``vq_argmin`` the model FLOPs of those launches (``flops``), which
+``torch.utils.flop_counter.FlopCounterMode`` cannot see.
 """

@@ -72,6 +72,23 @@ dropout_launches = 0
 bwd_launches = 0
 mma_launches = 0
 mma_bwd_launches = 0
+# The model FLOPs of those launches (``fwd_flops``, ``bwd_flops``), which
+# ``torch.utils.flop_counter.FlopCounterMode`` cannot see in a kernel
+# launched through ``ctypes``; the bench adds them to its count.
+flops = 0
+
+
+def fwd_flops(batch: int, seq: int, hidden: int) -> int:
+    """The two products of the forward, ``QK^T`` and ``PV``: 2 x 2 B T^2
+    H over all heads (H = heads x head_dim), what FlopCounterMode counts
+    for the plain version."""
+    return 4 * batch * seq * seq * hidden
+
+
+def bwd_flops(batch: int, seq: int, hidden: int) -> int:
+    """The four products of the plain backward (dP, dV, dQ, dK); the
+    kernels' recomputed scores are not model work."""
+    return 8 * batch * seq * seq * hidden
 
 
 def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
@@ -269,7 +286,7 @@ def _device(q):
 
 def _launch_fwd(q, k, v, mask, num_heads, drop, route):
     """Launch the forward kernel of ``route`` on checked CUDA tensors."""
-    global launches, dropout_launches, mma_launches
+    global launches, dropout_launches, mma_launches, flops
     mma = _route_arg(route, (q, k, v))
     B, T, H = q.shape
     o = torch.empty_like(q)
@@ -287,13 +304,14 @@ def _launch_fwd(q, k, v, mask, num_heads, drop, route):
     launches += 1
     dropout_launches += drop[0]
     mma_launches += mma
+    flops += fwd_flops(B, T, H)
     return o, m, l
 
 
 def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
     """Launch the backward kernel (``"mma"``) or kernels (``"fma"``) of
     ``route`` on checked CUDA tensors."""
-    global bwd_launches, mma_bwd_launches
+    global bwd_launches, mma_bwd_launches, flops
     mma = _route_arg(route, (q, k, v, do))
     B, T, H = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -311,6 +329,7 @@ def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
     _build.check(rc, "attention_bwd")
     bwd_launches += 1
     mma_bwd_launches += mma
+    flops += bwd_flops(B, T, H)
     return dq, dk, dv
 
 

@@ -51,8 +51,17 @@ CODE_TILE = 128  # codes per tile of the kernel
 TARGET_BLOCKS = 1056  # 8 blocks for each of the card's 132 SMs
 
 # Kernel launches so far (one per call); the wrapper adds one per launch
-# and nothing else does.
+# and nothing else does. ``flops``: their model FLOPs (``argmin_flops``),
+# which FlopCounterMode cannot see in a ``ctypes`` launch.
 launches = 0
+flops = 0
+
+
+def argmin_flops(n: int, k: int, d: int) -> int:
+    """The product ``x @ codebook.T``, 2 N K d: what FlopCounterMode
+    counts for the plain version (the kernel's three TF32 products are
+    how it computes one f32 product, not more model work)."""
+    return 2 * n * k * d
 
 # (device index, stream handle) -> (keys (capacity,) int64 of all ones,
 # tickets (ceil(capacity / TILE),) int32 of zeros)
@@ -167,7 +176,7 @@ def vq_argmin(x, codebook):
     if x.device.type != "cuda":
         raise ValueError(f"vq_argmin: no kernel for device {x.device}")
     _check_cuda(x, codebook)
-    global launches
+    global launches, flops
     n, d = x.shape
     k = codebook.shape[0]
     index = x.device.index
@@ -192,4 +201,5 @@ def vq_argmin(x, codebook):
             out, rc = launch()
     _build.check(rc, "vq_argmin")
     launches += 1
+    flops += argmin_flops(n, k, d)
     return out

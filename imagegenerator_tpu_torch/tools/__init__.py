@@ -1,0 +1,2 @@
+"""Command-line tools of the port that are not entry points of the
+system: ``profile_opclass`` (device time by class of kernel)."""

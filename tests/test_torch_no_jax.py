@@ -37,8 +37,9 @@ def test_importing_every_module_loads_no_jax():
     count, bad = proc.stdout.split(" ", 1)
     # v1 sampling, both training steps, the training runtime, v2 generation,
     # data parallelism, profiling, the caption cache, the host ops, eval,
-    # tensor parallelism, remat, the legacy LSTM path and the dry run
-    assert int(count) >= 66
+    # tensor parallelism, remat, the legacy LSTM path, the dry run, the
+    # bench and the op-class profiler
+    assert int(count) >= 69
     assert bad.strip() == "[]"
 
 
