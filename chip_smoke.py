@@ -2,8 +2,8 @@
 """Drive the PyTorch port's v1 sampling path, its stage-1 and stage-2
 training steps, the chain of its training and sampling CLIs, its v2
 VQGAN+CLIP generation, its data and tensor parallelism, remat, its
-evaluation CLI and its dry run on one CUDA card (or more, where there
-are).
+evaluation CLI, its dry run, its bench and its weights-day playbook on
+one CUDA card (or more, where there are).
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6,
@@ -17,6 +17,7 @@ are).
                                                # against float64 (phase_tiny_witness)
     python3 chip_smoke.py --only tp  # build, then phase 11 alone
     python3 chip_smoke.py --only bench  # build, then phase 12 alone
+    python3 chip_smoke.py --only weights-day  # build, then phase 13 alone
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -105,14 +106,14 @@ non-zero exit and no result line:
    argmin once per step and per synth, the lerp twice per step) and the
    resume are checked. Then the engine at batch 4 in f32 and bf16: one
    step from the same state and draws with the kernels on and off
-   (losses and the gradient of z). Then times: 20-step windows at batch
+   (losses and the gradient of z). Then times: 10-step windows at batch
    1 and 4 with the kernels on and off, in f32 (3 windows) and in bf16 (2
    windows), each kernel against its plain version and the library call,
    and ``torch.profiler`` over 5 steps. Then 256 px, where the image is
    larger than CLIP's 224 px and the cutouts take the lanczos path: the
    CLI for 3 iterations with the warp kernel on and off (the argmin's
    launches counted, each over N = 256 rows), one batch-1 step kernels on
-   vs off at the limits above, and 20-step windows in f32.
+   vs off at the limits above, and 10-step windows in f32.
 8. stage-2 training at full width — ``Stage2Config()`` (BERT-base, G1 to
    64 px, G2 with 4 residual blocks to 256 px, D2 (16, 32, 64, 128, 256,
    512)), bf16, n_critic 5, from a seeded random init. The ``tem`` route
@@ -180,7 +181,7 @@ non-zero exit and no result line:
    kernel on) for 3 iterations: PNG, ``comment`` chunk, finite losses,
    launch counts; one step's launches (one ``vq_argmin``, two
    ``scanline_lerp``); one batch-4 step kernels on vs off at phase 7's
-   limits in f32; 20-step windows at batch 1, kernels on and off. (3)
+   limits in f32; 10-step windows at batch 1, kernels on and off. (3)
    The evaluation CLI on 512 generated 256 px images (an ``.npz``)
    against 512 reference PNGs (blocky colour fields of two different
    laws) with 512 captions (``@file``), ``--batch 64``, ViT-B/32 and
@@ -224,7 +225,8 @@ non-zero exit and no result line:
    --fused_ln`` (tiny GAN nets over a 2-layer encoder of head dim 64),
    twice: trains, saves, resumes; the checkpoint loads in one process.
    (c) remat against none, f32, the full-width stage-1 step and the
-   stage-2 step at batch 32: metrics at 1e-5, peak memory and step times.
+   stage-2 step at batch 32: metrics at 1e-5, peak memory (stage 1's
+   must be lower with remat) and step times.
    (d) CLIP ViT-B/32 split over two model ranks against one process at
    1e-5 of the largest output. (e) ``dryrun.dryrun_multichip(2)``.
 12. the bench (``--only bench``): ``python -m imagegenerator_tpu_torch.bench``
@@ -244,6 +246,19 @@ non-zero exit and no result line:
    imagegenerator_tpu_torch.tools.profile_opclass --workload stage1``
    must give the hand kernels device time and shares that sum to 100 +-
    0.5%.
+13. the weights day (``--only weights-day``): the port's playbook
+   (``python -m imagegenerator_tpu_torch.tools.validate_real_weights``)
+   on the card, f32 with TF32 off, over phase 7's seeded full-width VQGAN
+   and CLIP ViT-B/32, a seeded BERT-base under HF names and a merges file
+   of the published length: every section and MANIFEST, the generation
+   through the v2 CLI with its ``vq_argmin`` launches counted (one per
+   iteration, two per checkin, one for the VQGAN section's probe); its
+   VQGAN, CLIP and BERT sections again on the CPU: VQGAN indices equal,
+   ``z_q`` and the decoded image at phase 7's f32 relative L2 (1e-4), CLIP
+   embeddings and BERT's CLS at phase 4's f32 limit (1e-3 of max(1, the
+   CPU's max abs)); BERT's CLS with the attention and LayerNorm kernels on
+   (12 + 25 launches) against off at phase 4's 1e-3. Prints the
+   generation's launches and the phase's wall seconds.
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
@@ -327,7 +342,12 @@ IMAGE_TOL = {"f32": 1e-3, "bf16": 0.1}
 HIDDEN_TOL = {"f32": 1e-3, "bf16": 0.1}
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):  # the run's seconds so far, against its time limit
+        msg = f"[{time.perf_counter() - _START:7.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -1207,7 +1227,7 @@ V2_LANCZOS, V2_LANCZOS_ITERS = 256, 3  # larger than ViT-B/32's 224 px: the lanc
 VQ_SHAPE = (64, 16384, 256)  # N, K, d on the main path: an 8 x 8 latent, the ImageNet f16 codebook
 VQ_TIMED_N = (64, 256, 512, 4096)
 LERP_SHAPE = (32 * 128, 3, 128, 128)  # S, C, K, O: 32 cutouts of 128 scanlines, 128 px
-V2_WINDOW = 20
+V2_WINDOW = 10  # steps a timing window
 ARGMIN_GAP = 1e-5  # of the row's score range, between the kernel's code and the plain version's
 LERP_TOL = (0.0, 1e-6)
 LERP_BWD_TOL = (2e-2, 2e-2)  # the bf16 rounding of the weights and the cotangent
@@ -1547,22 +1567,32 @@ def write_vqgan(tmp: Path, gen) -> dict:
     return vq_state
 
 
+def write_v2_files(tmp: Path) -> tuple:
+    """Phase 7's seeded full-width VQGAN (``vqgan.ckpt``, ``vqgan.yaml``)
+    and CLIP ViT-B/32 (``ViT-B-32.pt``, a ``state_dict`` under OpenAI's
+    names) in ``tmp``; their ``state_dict``s on the card."""
+    import torch
+
+    from imagegenerator_tpu_torch.v2.clip import CLIP
+
+    _, clip_cfg = v2_configs()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    vq_state = write_vqgan(tmp, gen)
+    clip_state = CLIP(clip_cfg, device="cuda", generator=gen).state_dict()
+    torch.save({k: v.cpu() for k, v in clip_state.items()}, tmp / "ViT-B-32.pt")
+    return vq_state, clip_state
+
+
 def phase_v2_path(tmp: Path, vq_argmin, scanline_lerp):
     import math
 
     import numpy as np
     import torch
 
-    from imagegenerator_tpu_torch.v2.clip import CLIP
-
     log("phase 7: v2 main path, full width")
     t0 = time.perf_counter()
-    _, clip_cfg = v2_configs()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    vq_state = write_vqgan(tmp, gen)
-    clip_state = CLIP(clip_cfg, device="cuda", generator=gen).state_dict()
+    vq_state, clip_state = write_v2_files(tmp)
     ckpt, conf, clip_pt = tmp / "vqgan.ckpt", tmp / "vqgan.yaml", tmp / "ViT-B-32.pt"
-    torch.save({k: v.cpu() for k, v in clip_state.items()}, clip_pt)
     n_vq = sum(v.numel() for v in vq_state.values())
     n_clip = sum(v.numel() for v in clip_state.values())
     log(f"  full-width random init: VQGAN {n_vq / 1e6:.1f}M, CLIP ViT-B/32 {n_clip / 1e6:.1f}M "
@@ -1846,7 +1876,7 @@ def phase_v2_lanczos(tmp: Path, vq_argmin, scanline_lerp, card):
 
 
 def phase_v2_lanczos_times(vq_state, clip_state, gen, card, size=V2_LANCZOS, clip_cfg=None, what=None):
-    """20-step windows at ``size`` px (256: the lanczos cutouts), batch 1,
+    """10-step windows at ``size`` px (256: the lanczos cutouts), batch 1,
     f32, kernels on and off in turns; the median ms a step of each."""
     import torch
 
@@ -3352,7 +3382,7 @@ def phase_rn50_towers(rn_sd) -> None:
 
 def phase_rn50_v2(tmp: Path, rn_sd, vq_argmin, scanline_lerp, gen, card):
     """(2): the v2 CLI with ``-m RN50`` at full width, one step's
-    launches, a batch-4 step kernels on vs off, 20-step windows. Returns
+    launches, a batch-4 step kernels on vs off, 10-step windows. Returns
     the launches of one step and the VQGAN's ``state_dict``."""
     import math
 
@@ -4224,15 +4254,22 @@ def phase_tp_remat(gen, card) -> None:
                 kw = dict(host_generator=host) if stage == 1 else {}
                 return systems[remat].train_step(batch, generator=gen, **kw)
 
-            runs = {}
+            runs, peaks = {}, {}
             for remat in (False, True):  # the first step of each: metrics and peak memory
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 runs[remat] = {k: v.item() for k, v in step(remat).items()}
-                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-                log(f"  stage {stage}, remat {remat}: first step's peak {peak:.2f} GiB over the {base / 2**30:.2f} "
-                    f"GiB held before it, metrics {runs[remat]} [{card}]")
+                peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+                log(f"  stage {stage}, remat {remat}: first step's peak {peaks[remat]:.3f} GiB over the "
+                    f"{base / 2**30:.3f} GiB held before it, metrics {runs[remat]} [{card}]")
+            log(f"  stage {stage}: remat takes the peak from {peaks[False]:.3f} to {peaks[True]:.3f} GiB "
+                f"({peaks[True] - peaks[False]:+.3f}) [{card}]")
+            # stage 1's peak is BERT's activations, which remat recomputes a
+            # layer at a time; stage 2's is G2's forward, no remat site
+            # (tools/probe_torch_memory.py)
+            if stage == 1 and not peaks[True] < peaks[False]:
+                raise AssertionError(f"stage 1: remat did not lower the peak ({peaks[True]:.3f} GiB)")
             times = {False: [], True: []}
             for remat in (False, True, True, False):  # later steps, in turns
                 times[remat].append(wall_ms(lambda: step(remat), runs=1))
@@ -4445,14 +4482,151 @@ def phase_bench(gen, card, train2_ms=None) -> None:
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------- the weights day
+
+WD_ITERS = 4  # v2 iterations of the playbook's generation
+# card (f32, TF32 off) vs CPU for the playbook's goldens: VQGAN z_q and the
+# decoded image by relative L2 at phase 7's f32 limit; CLIP's embeddings
+# and BERT's CLS by max abs over max(1, the CPU's max abs) at phase 4's f32
+# limit
+WD_TOL = {"vqgan": V2_STEP_TOL["f32"], "embeds": HIDDEN_TOL["f32"]}
+
+
+def write_bert(path: Path) -> None:
+    """A seeded BERT-base under HF's names (``bert.`` prefix, as a
+    ``pytorch_model.bin`` holds them)."""
+    import torch
+
+    from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    state = BertEncoder(BertConfig(), device="cuda", generator=gen).state_dict()
+    torch.save({f"bert.{k}": v.cpu() for k, v in state.items()}, path)
+
+
+def write_bpe(path: Path) -> None:
+    """A merges file in the published format and length (49152 merges:
+    CLIP's 49408 ids), of made-up pairs."""
+    import gzip
+
+    merges = ["#version: 0.2", "a </w>", "c a", "ca t</w>"]
+    merges += [f"q{'x' * (i % 3)} z{i}" for i in range(49152 - 256 - 2 - 3)]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(merges))
+
+
+def hold(what: str, err: float, limit: float) -> None:
+    log(f"  {what}: {err:.3e} (limit {limit:g}) {'ok' if err <= limit else 'FAIL'}")
+    if not err <= limit:
+        raise AssertionError(f"{what}: {err:.3e} over {limit:g}")
+
+
+def phase_weights_day(vq_argmin, attention, layernorm, card) -> None:
+    """Phase 13: the weights-day playbook
+    (``imagegenerator_tpu_torch/tools/validate_real_weights.py``) on the
+    card over phase 7's seeded full-width VQGAN and CLIP ViT-B/32, a
+    seeded BERT-base under HF names and a merges file of the published
+    length: every section, the generation through the v2 CLI; then its
+    VQGAN, CLIP and BERT sections again on the CPU, whose goldens the
+    card's must equal (indices) or match (``WD_TOL``); then BERT's CLS with
+    the attention and LayerNorm kernels on against off. Prints the
+    generation's ``vq_argmin`` launches and the phase's seconds."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from imagegenerator_tpu_torch.models.bert import BertEncoder, load_bert_checkpoint
+    from imagegenerator_tpu_torch.tools import validate_real_weights as tool
+    from imagegenerator_tpu_torch.v2.engine import frozen
+
+    t0 = time.perf_counter()
+    log(f"phase 13: the weights-day playbook on the card, full width, f32 (TF32 off), {WD_ITERS} v2 iterations")
+    set_tf32(False)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_v2_files(tmp)
+        write_bert(tmp / "pytorch_model.bin")
+        write_bpe(tmp / "bpe.txt.gz")
+        argv = ["--vqgan_config", str(tmp / "vqgan.yaml"), "--vqgan_checkpoint", str(tmp / "vqgan.ckpt"),
+                "--clip_checkpoint", str(tmp / "ViT-B-32.pt"), "--bert_checkpoint", str(tmp / "pytorch_model.bin"),
+                "--bpe_vocab", str(tmp / "bpe.txt.gz"), "--iterations", str(WD_ITERS)]
+        torch.cuda.empty_cache()
+        vq_argmin.launches = 0
+        reset_counts(attention, layernorm)
+        t_tool = time.perf_counter()
+        run_cli(tool.main, argv + ["--out", str(tmp / "card")])
+        torch.cuda.synchronize()
+        t_tool = time.perf_counter() - t_tool
+        launches = {"vq_argmin": vq_argmin.launches, **read_counts(attention, layernorm)}
+        # the VQGAN section's encode, then per iteration one, and at each
+        # of the two checkins (iterations 0 and WD_ITERS) a synth and a
+        # loss evaluation; the tool's BERT config takes no kernel
+        want = {"vq_argmin": 1 + WD_ITERS + 2 * 2, **{k: 0 for k in read_counts(attention, layernorm)}}
+        if launches != want:
+            raise AssertionError(f"phase 13: kernel launches {launches}, expected {want}")
+        manifest = json.loads((tmp / "card" / "MANIFEST.json").read_text())
+        if manifest != {"validated": ["vqgan", "clip", "bert", "generation", "eval"]}:
+            raise AssertionError(f"phase 13: manifest {manifest}")
+        if png_size(tmp / "card" / "weights_day_sample.png") != (V2_IMAGE, V2_IMAGE):
+            raise AssertionError("phase 13: the sample is not 128 x 128")
+        log(f"  the tool on the card: {t_tool:.1f} s, every section; vq_argmin launches {launches['vq_argmin']} "
+            f"(the generation {launches['vq_argmin'] - 1}), no BERT kernel [{card}]")
+
+        cpu = torch.device("cpu")
+        t_cpu = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tool.validate_vqgan(argv[1], argv[3], str(tmp / "cpu"), cpu)
+            tool.validate_clip(argv[5], argv[9], str(tmp / "cpu"), cpu)
+            tool.validate_bert(argv[7], str(tmp / "cpu"), cpu)
+        log(f"  the VQGAN, CLIP and BERT sections on the CPU: {time.perf_counter() - t_cpu:.1f} s")
+        golden = {side: {name: dict(np.load(tmp / side / f"{name}.npz"))
+                         for name in ("vqgan_roundtrip", "clip_embeds", "bert_cls")} for side in ("card", "cpu")}
+        card_vq, cpu_vq = golden["card"]["vqgan_roundtrip"], golden["cpu"]["vqgan_roundtrip"]
+        moved = int((card_vq["indices"] != cpu_vq["indices"]).sum())
+        log(f"  VQGAN indices, card vs CPU: {moved} of {cpu_vq['indices'].size} differ "
+            f"({len(np.unique(cpu_vq['indices']))} codes used) {'ok' if moved == 0 else 'FAIL'}")
+        if moved:
+            raise AssertionError(f"phase 13: {moved} VQGAN indices differ between the card and the CPU")
+        for k in ("z_q", "decoded"):
+            hold(f"VQGAN {k}, card vs CPU, relative L2",
+                 rel_l2(torch.from_numpy(card_vq[k]), torch.from_numpy(cpu_vq[k])), WD_TOL["vqgan"])
+        for name, keys in (("clip_embeds", ("text_embeds", "image_embeds")), ("bert_cls", ("cls",))):
+            for k in keys:
+                a, b = golden["card"][name][k], golden["cpu"][name][k]
+                hold(f"{name} {k}, card vs CPU, max abs / max(1, max |CPU|)",
+                     float(np.abs(a - b).max() / max(1.0, np.abs(b).max())), WD_TOL["embeds"])
+
+        state, cfg = load_bert_checkpoint(argv[7])
+        ids = torch.from_numpy(golden["cpu"]["bert_cls"]["input_ids"]).cuda()
+        mask = torch.ones(ids.shape, dtype=torch.int32, device="cuda")
+        cls = {}
+        for fused in (False, True):
+            enc = frozen(BertEncoder, dataclasses.replace(cfg, fused_attention=fused, fused_ln=fused), state,
+                         device="cuda")
+            reset_counts(attention, layernorm)
+            with torch.no_grad():
+                cls[fused] = enc(ids, mask)[:, 0, :].float()
+            torch.cuda.synchronize()
+            counts = read_counts(attention, layernorm)
+        want = {"attention": 12, "attention_mma": 0, "attention_dropout": 0, "attention_bwd": 0,
+                "attention_bwd_mma": 0, "layernorm": 25, "layernorm_bwd": 0}
+        if counts != want:  # f32 at T = 16: the FMA attention kernel
+            raise AssertionError(f"phase 13: BERT kernel launches {counts}, expected {want}")
+        hold("BERT CLS, fused attention and LayerNorm kernels vs plain, max abs",
+             (cls[True] - cls[False]).abs().max().item(), HIDDEN_TOL["f32"])
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "bench", "d2-trace",
-                                           "tiny-trace", "tiny-witness"],
+    parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "bench", "weights-day",
+                                           "d2-trace", "tiny-trace", "tiny-witness"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
@@ -4535,6 +4709,8 @@ def main() -> int:
         phase_tp(attention, gen, card)
     if args.only == "bench":
         phase_bench(gen, card)
+    if args.only == "weights-day":
+        phase_weights_day(vq_argmin, attention, layernorm, card)
     if args.only == "d2-trace":
         phase_d2_trace(card)
     if args.only == "tiny-trace":
@@ -4566,6 +4742,8 @@ def main() -> int:
     tp_launches, tp_t = phase_tp(attention, gen, card)
     torch.cuda.empty_cache()  # phase 12's bench processes share the card
     phase_bench(gen, card, train2_times["tem_ms"] if train2_size == TRAIN2_BATCH else None)
+    torch.cuda.empty_cache()
+    phase_weights_day(vq_argmin, attention, layernorm, card)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the

@@ -65,8 +65,9 @@ Targets (each a full-width, seeded random init built on the card):
                 through CocoCaptions + HashTokenizer + DataLoader host
                 batches, uint8 at 256 px, 16 workers; no device work
   e2e           the stage-2 step fed by the DataLoader over
-                PrecomputedTextDataset/TemCollate (``tem`` in f32: numpy
-                has no bf16), uint8 images pinned and copied
+                PrecomputedTextDataset/TemCollate (``tem`` in the
+                compute dtype, as the JAX bench: bf16 collated into a
+                pinned torch tensor), uint8 images pinned and copied
                 asynchronously; one warm epoch of 4 batches, then
                 whole-epoch windows
 
@@ -767,9 +768,8 @@ def bench_e2e(config=None):
     once beforehand. BENCH_REPS whole-epoch windows after one warm epoch
     (every window decodes every image again: the loader caches nothing).
     The images cross the link as uint8 (BENCH_IMAGE_DTYPE=f32: normalised
-    on the host, 4x the bytes), through pinned memory, asynchronously."""
-    import numpy as np
-
+    on the host, 4x the bytes), ``tem`` in the compute dtype (bf16: 256
+    KiB a batch of 256 x 512), both through pinned memory, asynchronously."""
     from imagegenerator_tpu_torch.data.coco import CocoCaptions
     from imagegenerator_tpu_torch.data.pipeline import DataLoader
     from imagegenerator_tpu_torch.data.text_cache import (
@@ -798,7 +798,7 @@ def bench_e2e(config=None):
         system.embed_texts, tok, [e.caption for e in ds.entries], cfg.tem_size,
         batch_size=batch, device=device,
     )
-    loader = DataLoader(PrecomputedTextDataset(ds, tems), TemCollate(np.float32), batch_size=batch,
+    loader = DataLoader(PrecomputedTextDataset(ds, tems), TemCollate(_dtype()), batch_size=batch,
                         num_workers=workers, device=device)
 
     _hb("e2e: warm epoch (loader + copies + steps)")

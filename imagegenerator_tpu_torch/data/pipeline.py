@@ -109,11 +109,12 @@ class DataLoader:
 
     def _to_device(self, host_batch) -> dict:
         """Tensors on ``self.device``, dtypes kept. For the card each
-        array goes through pinned memory and an asynchronous copy, which
-        the stream orders before the step that reads it."""
+        array (or CPU tensor, as a collate of a dtype numpy lacks gives)
+        goes through pinned memory and an asynchronous copy, which the
+        stream orders before the step that reads it."""
         out = {}
         for k, v in host_batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t

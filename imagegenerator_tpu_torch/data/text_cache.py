@@ -100,10 +100,18 @@ class PrecomputedTextDataset:
 
 class TemCollate:
     """The loader's tokenizer role for precomputed embeddings: stacks the
-    rows into ``{'tem': (B, tem_size)}`` of ``dtype``."""
+    rows into ``{'tem': (B, tem_size)}`` of ``dtype``, a numpy dtype or a
+    torch one. numpy has no bfloat16, so a torch dtype (the JAX package's
+    ``TemCollate(dtype=bfloat16)``: the step's compute dtype crosses the
+    link) collates into a torch tensor, rounded to nearest even as
+    ``ml_dtypes`` rounds, in pinned memory where there is a card."""
 
     def __init__(self, dtype=np.float32):
         self.dtype = dtype
 
-    def __call__(self, tems: list[np.ndarray]) -> dict[str, np.ndarray]:
-        return {"tem": np.stack(tems).astype(self.dtype)}
+    def __call__(self, tems: list[np.ndarray]) -> dict:
+        stacked = np.stack(tems)
+        if not isinstance(self.dtype, torch.dtype):
+            return {"tem": stacked.astype(self.dtype)}
+        out = torch.empty(stacked.shape, dtype=self.dtype, pin_memory=torch.cuda.is_available())
+        return {"tem": out.copy_(torch.from_numpy(stacked.astype(np.float32, copy=False)))}

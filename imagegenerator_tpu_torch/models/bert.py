@@ -52,6 +52,7 @@ from imagegenerator_tpu_torch.ops.gelu import gelu_exact_output_bwd
 from imagegenerator_tpu_torch.ops.kernels import attention as attn_kernel
 from imagegenerator_tpu_torch.ops.kernels import layernorm as ln_kernel
 from imagegenerator_tpu_torch.ops.layers import Dense
+from imagegenerator_tpu_torch.ops.remat import remat as remat_fn
 from imagegenerator_tpu_torch.parallel import tp as tp_ops
 
 
@@ -313,12 +314,16 @@ class BertEncoder(nn.Module):
         )
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                deterministic=True, generator=None, host_generator=None, draws=None):
+                deterministic=True, generator=None, host_generator=None, draws=None, remat=False):
         """``deterministic=False`` turns dropout on: masks drawn from
         ``generator`` (on the ids' device), the fused attention's int32
         seeds, one per layer, from ``host_generator``: a CPU
         ``torch.Generator`` or an iterator of seeds. ``draws`` (a
-        ``Draws``) replaces both."""
+        ``Draws``) replaces both. ``remat`` keeps only each layer's input
+        for the backward, which recomputes the layers one at a time
+        (``ops/remat.py``); with dropout on, ``draws`` must replay masks
+        drawn beforehand (``draw``), and each layer's recomputation
+        replays its own."""
         if draws is None:
             draws = Draws(generator, host_generator)
         T = input_ids.shape[1]
@@ -335,8 +340,25 @@ class BertEncoder(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         for layer in self.encoder.layer:
-            x = layer(x, attention_mask, deterministic, draws)
+            if remat:
+                x = remat_fn(self._replaying(layer, attention_mask, deterministic, draws, T, x.is_cuda), x)
+            else:
+                x = layer(x, attention_mask, deterministic, draws)
         return x
+
+    def _replaying(self, layer, attention_mask, deterministic, draws, seq_len, is_cuda):
+        """``layer``'s forward as a function of its input alone, replaying
+        the masks and seeds it takes from ``draws`` (taken now) on every
+        call, so that its recomputation sees the draws of the first."""
+        cfg, masks, seeds = self.config, [], []
+        if not deterministic and cfg.dropout_rate > 0.0:
+            if draws.masks is None:
+                raise ValueError("BERT: remat with dropout replays masks drawn beforehand (BertEncoder.draw)")
+            fused = _fused(cfg, is_cuda, seq_len)
+            masks = [next(draws.masks) for _ in range(2 if fused else 3)]
+            seeds = [next(draws.seeds)] if fused else []
+        rows = draws.rows
+        return lambda x: layer(x, attention_mask, deterministic, Draws(masks=iter(masks), seeds=iter(seeds), rows=rows))
 
     def draw(self, batch: int, seq_len: int, device, generator=None, host_generator=None) -> Predrawn:
         """The masks and seeds a training forward over ``batch`` rows of

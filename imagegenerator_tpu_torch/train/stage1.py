@@ -63,7 +63,11 @@ Adam's moments follow their parameter's shard.
 ``ops/remat.py::remat``: the critic's image tower (real, fake and the
 GP's interpolation), its full forward in the generator step, and the
 hoisted text forward, whose dropout masks and seeds are drawn before it
-(``BertEncoder.draw``) so the recomputation replays them.
+(``BertEncoder.draw``) so the recomputation replays them. The text
+forward is checkpointed a BERT layer at a time: the backward then
+recomputes one layer's activations at a time, where recomputing the
+whole forward at once would bring every layer's back together (they set
+the step's peak; ``tools/probe_torch_memory.py``).
 ``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
 
 A ``noise`` dict may also replay the hoisted text forward's dropout:
@@ -253,11 +257,12 @@ class Stage1System(nn.Module):
         opt.step()
 
     def encode_text(self, tokens, mask, deterministic=True, generator=None,
-                    host_generator=None, draws=None):
-        """tokens -> tem: CLS hidden state -> projection."""
+                    host_generator=None, draws=None, remat=False):
+        """tokens -> tem: CLS hidden state -> projection; ``remat``
+        recomputes the encoder a layer at a time in the backward."""
         hidden = self.encoder(
             tokens, mask, deterministic=deterministic, generator=generator,
-            host_generator=host_generator, draws=draws,
+            host_generator=host_generator, draws=draws, remat=remat,
         )
         return self.projection(hidden[:, 0, :].float())
 
@@ -344,12 +349,8 @@ class Stage1System(nn.Module):
             ids, ids_mask = ids[share], ids_mask[share]
             if predrawn is None and c.remat and c.text_dropout:
                 predrawn = self.encoder.draw(n * data, ids.shape[1], dev, generator, seeds)
-            if predrawn is not None:
-                run = lambda i, m: self.encode_text(i, m, not c.text_dropout, draws=predrawn.draws(rows))
-            else:
-                draws = Draws(generator, seeds, rows=rows)
-                run = lambda i, m: self.encode_text(i, m, not c.text_dropout, draws=draws)
-            tem = remat_fn(run, ids, ids_mask) if c.remat else run(ids, ids_mask)
+            draws = Draws(generator, seeds, rows=rows) if predrawn is None else predrawn.draws(rows)
+            tem = self.encode_text(ids, ids_mask, not c.text_dropout, draws=draws, remat=c.remat)
             return tem if data == 1 else gather(tem)
 
         def text_both():

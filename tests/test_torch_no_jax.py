@@ -7,6 +7,7 @@ import ast
 import os
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -26,6 +27,20 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print(len(names), bad)
 """
 
+# each console script's target; the probe imports it alone, as the script does
+_SCRIPT_PROBE = f"""
+import importlib, sys
+target = sys.argv[1]
+module, func = target.split(":")
+assert callable(getattr(importlib.import_module(module), func))
+print(sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}))
+"""
+
+
+PORT_SCRIPTS = {name: target for name, target in
+                tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"].items()
+                if name.startswith("imagegen-torch-")}
+
 
 def test_importing_every_module_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -38,9 +53,32 @@ def test_importing_every_module_loads_no_jax():
     # v1 sampling, both training steps, the training runtime, v2 generation,
     # data parallelism, profiling, the caption cache, the host ops, eval,
     # tensor parallelism, remat, the legacy LSTM path, the dry run, the
-    # bench and the op-class profiler
-    assert int(count) >= 69
+    # bench, the op-class profiler and the weights-day playbook
+    assert int(count) >= 70
     assert bad.strip() == "[]"
+
+
+def test_the_port_has_its_console_scripts():
+    assert sorted(PORT_SCRIPTS) == [f"imagegen-torch-{n}" for n in ("bench", "evaluate", "generate", "sample", "train")]
+
+
+@pytest.mark.parametrize("name", sorted(PORT_SCRIPTS))
+def test_console_script_imports_no_jax(name):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, PORT_SCRIPTS[name]], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_the_checkpoint_bridge_is_not_part_of_the_port():
+    """``tools/jax_checkpoint_to_port.py`` imports JAX and Orbax to read
+    and write the JAX package's checkpoints, so it lives outside the
+    port's sources and the port imports it nowhere."""
+    assert (ROOT / "tools" / "jax_checkpoint_to_port.py").exists()
+    assert not any(p.name == "jax_checkpoint_to_port.py" for p in SOURCES)
+    for path in SOURCES:
+        assert "jax_checkpoint_to_port" not in path.read_text(), path
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

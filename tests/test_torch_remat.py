@@ -89,6 +89,46 @@ def test_stage2_remat_equals_no_remat(route):
           _two_steps(ts2.Stage2System, cfg, flat, batch, host=False), f"stage 2 {route}")
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_bert_remat_recomputes_one_layer_at_a_time(fused):
+    """``BertEncoder(..., remat=True)`` with dropout on and predrawn masks
+    (fused attention's seeds or the einsum route's prob masks): the output
+    and every gradient bit-equal to the plain forward's, and the backward
+    recomputes the layers one at a time, last layer first, each between
+    two layers' backward passes."""
+    from imagegenerator_tpu_torch.models.bert import BertEncoder
+
+    cfg = dataclasses.replace(BertConfig.tiny(), num_layers=3, fused_attention=fused, fused_ln=fused)
+    enc = BertEncoder(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(1, cfg.vocab_size, (4, 8), generator=torch.Generator().manual_seed(1))
+    mask = (torch.arange(8)[None, :] < torch.tensor([[8], [5], [3], [8]])).int()
+    predrawn = enc.draw(4, 8, "cpu", torch.Generator().manual_seed(2), torch.Generator().manual_seed(3))
+    assert len(predrawn.masks) == (7 if fused else 10) and len(predrawn.seeds) == (3 if fused else 0)
+    cot = torch.randn((4, 8, cfg.hidden_size), generator=torch.Generator().manual_seed(4))
+    events = []
+    for i, layer in enumerate(enc.encoder.layer):
+        # a recomputation stops once it has what the backward needs, before
+        # the layer returns: its first Dense marks that it ran
+        layer.attention.self.query.register_forward_hook(lambda *_, i=i: events.append(("forward", i)))
+        layer.output.dense.register_full_backward_hook(lambda *_, i=i: events.append(("backward", i)))
+    outs = {}
+    for remat in (False, True):
+        events.clear()
+        out = enc(ids, mask, deterministic=False, draws=predrawn.draws(), remat=remat)
+        grads = torch.autograd.grad((out * cot).sum(), list(enc.parameters()))
+        outs[remat] = (out.detach(), grads, list(events))
+    assert torch.equal(outs[True][0], outs[False][0])
+    for a, b in zip(outs[True][1], outs[False][1]):
+        assert torch.equal(a, b)
+    forwards = [("forward", i) for i in range(3)]
+    assert outs[False][2] == forwards + [("backward", 2), ("backward", 1), ("backward", 0)]
+    assert outs[True][2] == forwards + [("forward", 2), ("backward", 2), ("forward", 1), ("backward", 1),
+                                        ("forward", 0), ("backward", 0)]
+    with pytest.raises(ValueError, match="drawn beforehand"):
+        enc(ids, mask, deterministic=False, generator=torch.Generator(), host_generator=torch.Generator(),
+            remat=True)
+
+
 def test_recomputation_writes_batchnorm_statistics_once():
     """One checkpointed tower pass under the gradient penalty's double
     backward (recomputed twice): the running statistics move as after one

@@ -36,13 +36,14 @@ which take the cap outright (their moments are noise too):
   the GP's image gradient does not see them."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import traverse_util
 
 from imagegenerator_tpu.models.bert import BertConfig as JBertConfig
 from imagegenerator_tpu.train import stage1 as js1
@@ -50,6 +51,10 @@ from imagegenerator_tpu_torch import convert
 from imagegenerator_tpu_torch.models.bert import BertConfig
 from imagegenerator_tpu_torch.train import stage1 as ts1
 from tests.test_torch_sample import _eps
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+# the flat dict <-> JAX state conversions of the checkpoint bridge
+from jax_checkpoint_to_port import jax_flat, jax_state_from_flat  # noqa: E402
 
 torch.set_num_threads(2)
 B = 4
@@ -103,51 +108,7 @@ def _noise(system, state, key):
     return {k: torch.from_numpy(np.array(v)) for k, v in noise.items()}
 
 
-def _adam(opt_state):
-    return next(s for s in opt_state if hasattr(s, "mu"))
-
-
 STAGE1_FIELDS = ("params", "batch_stats")
-
-
-def jax_flat(state, fields=STAGE1_FIELDS) -> dict:
-    """A ``Stage1State`` (or, with its ``fields``, a ``Stage2State``) as
-    the flat dict of ``convert``, optimizer state and step included."""
-    flat = {}
-    for field in fields:
-        for path, a in traverse_util.flatten_dict(getattr(state, field)).items():
-            flat[field + "/" + "/".join(path)] = np.asarray(a)
-    for m, st in state.opt_state.items():
-        adam = _adam(st)
-        flat[f"opt_state/{m}/count"] = np.asarray(adam.count)
-        for name in ("mu", "nu"):
-            for path, a in traverse_util.flatten_dict(getattr(adam, name)).items():
-                flat[f"opt_state/{m}/{name}/" + "/".join(path)] = np.asarray(a)
-    flat["step"] = np.asarray(state.step)
-    return flat
-
-
-def jax_state_from_flat(template, flat, fields=STAGE1_FIELDS):
-    """The inverse of ``jax_flat`` on the structure of ``template``."""
-
-    def tree(prefix):
-        items = {tuple(k[len(prefix):].split("/")): jnp.asarray(v)
-                 for k, v in flat.items() if k.startswith(prefix)}
-        return traverse_util.unflatten_dict(items)
-
-    opt_state = {}
-    for m, st in template.opt_state.items():
-        count = jnp.asarray(flat[f"opt_state/{m}/count"], jnp.int32)
-        parts = []
-        for s in st:
-            if hasattr(s, "mu"):
-                s = s._replace(count=count, mu=tree(f"opt_state/{m}/mu/"), nu=tree(f"opt_state/{m}/nu/"))
-            elif "count" in s._fields:
-                s = s._replace(count=count)
-            parts.append(s)
-        opt_state[m] = type(st)(parts)
-    return template.replace(**{field: tree(field + "/") for field in fields},
-                            opt_state=opt_state, step=jnp.asarray(flat["step"], jnp.int32))
 
 
 def _lr(cfg, flat_key):

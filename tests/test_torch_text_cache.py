@@ -125,3 +125,27 @@ def test_stage2_trainer_runs_on_precomputed_embeddings(carried, tmp_path, capsys
     with pytest.raises(ValueError, match="rows"):
         text_cache.PrecomputedTextDataset(ds, table[:3])
     assert text_cache.TemCollate(np.float16)([table[0], table[1]])["tem"].dtype == np.float16
+
+
+def test_bf16_collate_is_jax_bf16_collate_bit_for_bit():
+    """``TemCollate(torch.bfloat16)`` (the ``e2e`` bench's transfer in
+    bf16) rounds as the JAX package's ``TemCollate(bfloat16)``: the same
+    bits for every row, ties to even included, and the loader takes the
+    torch tensor as it comes."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(0)
+    rows = list(rng.standard_normal((6, 512)).astype(np.float32) * np.float32(3.0))
+    # exact ties between two bf16 values, both parities, signs, tiny and huge values
+    ties = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0x00018000, 0x7F7F8000, 0x7F7FFFFF],
+                    np.uint32).view(np.float32)
+    rows.append(np.resize(np.concatenate([ties, [0.0, -0.0, np.inf, -np.inf, 1e-40, 3.4e38]]), 512)
+                .astype(np.float32))
+    got = text_cache.TemCollate(torch.bfloat16)(rows)["tem"]
+    want = jcache.TemCollate(ml_dtypes.bfloat16)(rows)["tem"]
+    assert got.dtype == torch.bfloat16 and want.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+    loader = DataLoader([(r, np.zeros((4, 4, 3), np.uint8)) for r in rows], text_cache.TemCollate(torch.bfloat16),
+                        batch_size=7, shuffle=False, num_workers=1, device="cpu")
+    tem = next(iter(loader))["tem"]
+    np.testing.assert_array_equal(tem.view(torch.int16).numpy(), want.view(np.int16))

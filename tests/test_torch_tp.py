@@ -26,7 +26,8 @@ sees that data peers hold the same shards and the same BatchNorm
 statistics (synchronised over the data group) and that model peers hold
 the same whole tensors. The ranks of the two-rank group then run
 ``train.cli --multihost --tp 2`` twice (train, resume); its checkpoint
-loads into one process of the port and into a JAX ``Stage1State``."""
+loads into one process of the port, and goes back to Orbax through
+``tools/jax_checkpoint_to_port.py`` for a JAX trainer to resume."""
 
 import dataclasses
 import json
@@ -359,7 +360,8 @@ def test_the_tp_cli_trains_resumes_and_its_checkpoint_loads_anywhere(jax_side, r
     """``train.cli --multihost --tp 2``: both ranks join a (1, 2) grid,
     rank 0 logs the steps and writes the checkpoint, both resume; the
     checkpoint is the whole flat dict and loads into one process of the
-    port and into a JAX ``Stage1State``."""
+    port; the checkpoint bridge carries it to Orbax, from which a JAX
+    trainer resumes and trains on."""
     import jax
 
     from imagegenerator_tpu.train import stage1 as js1
@@ -367,7 +369,12 @@ def test_the_tp_cli_trains_resumes_and_its_checkpoint_loads_anywhere(jax_side, r
     from imagegenerator_tpu_torch.checkpoint import CheckpointManager
     from imagegenerator_tpu_torch.models.bert import BertConfig
     from imagegenerator_tpu_torch.train import stage1 as ts1
-    from tests.test_torch_stage1_step import jax_state_from_flat
+    from flax import traverse_util
+
+    from imagegenerator_tpu.train.trainer import Stage1Trainer as JStage1Trainer
+    from imagegenerator_tpu.train.trainer import TrainerOptions as JTrainerOptions
+    from tests import test_torch_stage1_step as t1
+    from tests.test_torch_checkpoint_bridge import bridge
 
     tmp, logs = ranks
     for r in range(2):
@@ -384,13 +391,23 @@ def test_the_tp_cli_trains_resumes_and_its_checkpoint_loads_anywhere(jax_side, r
     assert one.step == 4
     np.testing.assert_array_equal(convert.to_numpy(one)["params/encoder/layer_0/attention/query/kernel"],
                                   flat["params/encoder/layer_0/attention/query/kernel"])
+    # back to Orbax through the bridge, and a JAX trainer resumes from it
+    # with the whole state and EMA, then trains on
+    bridge.main(["--to", "jax", "--stage", "1", "--tiny", "--n_critic", "1", "--seq_len", "8", "--fused_attn",
+                 "--fused_ln", "--checkpoint_dir", str(tmp / "world2" / "ckpt"), "--out_dir", str(tmp / "jax")])
     jsys = js1.Stage1System(js1.Stage1Config.tiny(n_critic=1))
-    template = jax.jit(jsys.init, static_argnums=1)(jax.random.key(0), 2)
-    jstate = jax_state_from_flat(template, flat)
-    got = jstate.params["encoder"]["layer_0"]["attention"]["query"]["kernel"]
-    assert got.shape == template.params["encoder"]["layer_0"]["attention"]["query"]["kernel"].shape
-    np.testing.assert_array_equal(np.asarray(got), flat["params/encoder/layer_0/attention/query/kernel"])
-    assert int(jstate.step) == 4
+    batch = {k: jax.numpy.asarray(v) for k, v in t1._batch(cfg, False).items()}
+    trainer = JStage1Trainer(jsys, [batch], JTrainerOptions(num_epochs=2, checkpoint_dir=str(tmp / "jax" / "Stage1"),
+                                                            ema_decay=0.9))
+    jstate, jstart = trainer.init_state(2)
+    assert jstart == 1 and int(jstate.step) == 4
+    restored = bridge.jax_flat(jstate)
+    assert set(restored) == set(flat) and all(np.array_equal(restored[k], v) for k, v in flat.items())
+    ema = traverse_util.flatten_dict(trainer.ema, sep="/")
+    assert {f"ema/{k}" for k in ema} == set(aux) and all(np.array_equal(v, aux[f"ema/{k}"]) for k, v in ema.items())
+    jstate = trainer.fit(jstate, jstart)
+    assert int(jstate.step) == 5
+    assert np.isfinite(np.asarray(jstate.params["encoder"]["layer_0"]["attention"]["query"]["kernel"])).all()
 
 
 if __name__ == "__main__":
