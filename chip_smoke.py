@@ -2,8 +2,9 @@
 """Drive the PyTorch port's v1 sampling path, its stage-1 and stage-2
 training steps, the chain of its training and sampling CLIs, its v2
 VQGAN+CLIP generation, its data and tensor parallelism, remat, its
-evaluation CLI, its dry run, its bench and its weights-day playbook on
-one CUDA card (or more, where there are).
+evaluation CLI, its dry run, its bench, its weights-day playbook and its
+attention kernels over every shape of the JAX fused path on one CUDA
+card (or more, where there are).
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --only v2  # build, then phase 7 alone (--only train: phase 6,
@@ -18,6 +19,7 @@ one CUDA card (or more, where there are).
     python3 chip_smoke.py --only tp  # build, then phase 11 alone
     python3 chip_smoke.py --only bench  # build, then phase 12 alone
     python3 chip_smoke.py --only weights-day  # build, then phase 13 alone
+    python3 chip_smoke.py --only attention-shapes  # build, then phase 14 alone
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -260,13 +262,42 @@ non-zero exit and no result line:
    (12 + 25 launches) against off at phase 4's 1e-3. Prints the
    generation's launches and the phase's wall seconds.
 
+14. attention over every shape the JAX fused path takes (``--only
+   attention-shapes``). (a) The pair over a covering grid: f32 and bf16 x
+   head dims 8, 16, 40, 64, 128, 256, 320 x T = 1, 77, 128, 136, 256,
+   512, 1024 x no mask, ragged rows, a fully masked row x rate 0 and 0.1
+   (B 3, 2 heads), each case through the wrappers against the plain
+   versions at phase 2's limits (m at atol 1e-5 on both routes), each on
+   the route ``kernel_route`` names (its counters read: bf16 up to head
+   dim 256 on the tensor cores at every T, f32 and bf16 at 320 on the FMA
+   kernels); the keep-mask bits read back from both kernels (q = k = 0,
+   one-hot v and dO) equal the plain version's; a planted fault (the
+   scale left at 1/8 at head dim 32). (b) Times of the pair at (256, 256,
+   768) and (256, 512, 768) (the tiled kernels), (256, 128, 768) (the
+   whole-head kernels, beside PERF.md's device times) and at (256, 128,
+   768) with 24 heads of 32 and 6 of 128: CUDA events in turns with the
+   plain versions, profiler device time, rate 0.1 and 0, SDPA and its
+   backward at rate 0, the bound. (c) The full-width stage-1 step
+   (bf16, ``--fused_attn`` with 16-bit masks, ``--fused_ln``, text
+   dropout on) at seq_len 256 and 512: one step at batch 32 (12 + 12
+   attention launches, all on the tensor cores, 25 + 25 LayerNorm), then
+   at batch 128 with remat (halved while it does not fit) kernels on and
+   off in turns; at 512 phase 6's kernels-on-vs-off check at batch 32;
+   one step each with 24 heads of 32 and 6 of 128 at seq_len 128 for
+   their launches. (d) The tiny stage-1 step (``BertConfig.tiny``: head
+   dim 8) with fused attention and text dropout on, f32, on the card
+   (FMA kernels, off cuDNN) against the same step on the CPU, masks and
+   seeds replayed, at phase 8 (c)'s limits.
+
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
 could take and, where one PyTorch call computes the same function, that
 call's; the v2 kernels also with their launches at 256 px and on one
 RN50 step, the v1 training kernels with one rank's launches in a step of
-phase 11's grid, and the attention pair's rows at that rank's width
-384), the card's line from nvidia-smi, and last ``{"ok": true,
+phase 11's grid, the attention pair's rows at that rank's width 384, and
+phase 14's rows at seq_len 256 and 512, at head dims 32 and 128 and at
+the whole-head shape, each with the launches of one step of that
+configuration), the card's line from nvidia-smi, and last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -1009,11 +1040,11 @@ def train_config(fused: bool, text_dropout: bool, dtype):
     return Stage1Config(compute_dtype=dtype, bert=bert, text_dropout=text_dropout)
 
 
-def train_batch(cfg, gen):
+def train_batch(cfg, gen, B=TRAIN_BATCH):
     """Seeded tokens with ragged padding and uint8 64 px images."""
     import torch
 
-    B, T = TRAIN_BATCH, cfg.seq_len
+    T = cfg.seq_len
     lengths = torch.randint(8, T + 1, (B,), generator=gen, device="cuda")
     return {
         "input_ids": torch.randint(1, cfg.bert.vocab_size, (B, T), generator=gen, device="cuda",
@@ -1024,10 +1055,10 @@ def train_batch(cfg, gen):
     }
 
 
-def train_noise(cfg, gen):
+def train_noise(cfg, gen, B=TRAIN_BATCH):
     import torch
 
-    B, n = TRAIN_BATCH, cfg.n_critic
+    n = cfg.n_critic
     return {
         "perm": torch.randperm(B, generator=gen, device="cuda"),
         "ca_eps": torch.randn((n, B, cfg.c_dim), generator=gen, device="cuda"),
@@ -1055,6 +1086,49 @@ def train_system(cfg, state):
     system = Stage1System(cfg, device="meta")
     system.load_state_dict({k: v.clone() for k, v in state.items()}, assign=True)
     return system
+
+
+def on_off_readings(on, off, batch, noise, cot) -> dict:
+    """One step of two stage-1 systems from the same state, the kernels on
+    and off, with the same batch and noise: ``{what: (kind, on, off)}`` of
+    the 4 metrics, the generator's updated BatchNorm statistics and the
+    encoder's and projection's gradients of ``sum(tem * cot)`` over the
+    step's text forward, taken before the step (which moves each side's
+    parameters by its own ill-conditioned generator-step gradients)."""
+    import torch
+
+    grads_on, grads_off = text_grads(on, batch, noise["perm"], cot), text_grads(off, batch, noise["perm"], cot)
+    m_on, m_off = on.train_step(batch, noise=noise), off.train_step(batch, noise=noise)
+    torch.cuda.synchronize()
+    readings = {f"metric {k}": ("metric", m_on[k], m_off[k]) for k in m_on}
+    stats = [(b, off.generator.get_buffer(n)) for n, b in on.generator.named_buffers()]
+    readings["generator BN stats"] = ("bn", torch.cat([a.flatten() for a, _ in stats]),
+                                      torch.cat([b.flatten() for _, b in stats]))
+    for module in grads_on:
+        readings[f"{module} grads, fixed tem cotangent"] = ("grads", grads_on[module], grads_off[module])
+    return readings
+
+
+def hold_on_off(tag, readings) -> None:
+    """Phase 6's kernels-on-vs-off readings ``{what: (kind, on, off)}`` at
+    ``STEP_TOL[tag][kind]``: relative L2 for gradients, else max abs
+    difference over max(1, the plain side's max abs)."""
+    import torch
+
+    for what, (kind, a, b) in readings.items():
+        a, b = a.double(), b.double()
+        if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+            raise AssertionError(f"{tag} {what}: not finite")
+        if kind == "grads":
+            rel, how = ((a - b).norm() / b.norm()).item(), "relative L2 difference"
+        else:
+            rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            how = "max abs diff / max(1, max abs)"
+        limit = STEP_TOL[tag][kind]
+        ok = rel <= limit
+        log(f"  {tag} {what}: {how} {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: kernels-on {what} disagrees with kernels-off")
 
 
 def phase_train(attention, layernorm, gen, card):
@@ -1106,37 +1180,13 @@ def phase_train(attention, layernorm, gen, card):
         set_tf32(False)
         on = train_system(train_config(True, False, dtype), state)
         off = train_system(train_config(False, False, dtype), state)
-        # from the same state: before the step, which moves each side's
-        # parameters by its own (ill-conditioned) generator-step gradients
-        grads_on, grads_off = text_grads(on, batch, noise["perm"], cot), text_grads(off, batch, noise["perm"], cot)
-        m_on, m_off = on.train_step(batch, noise=noise), off.train_step(batch, noise=noise)
-        torch.cuda.synchronize()
+        hold_on_off(tag, on_off_readings(on, off, batch, noise, cot))
         for module in ("encoder", "projection"):
             got = torch.cat([p.grad.flatten().double() for p in getattr(on, module).parameters()])
             want = torch.cat([p.grad.flatten().double() for p in getattr(off, module).parameters()])
             log(f"  {tag} generator-step {module} grads: relative L2 difference "
                 f"{((got - want).norm() / want.norm()).item():.3e} (reported, not held: "
                 f"ill-conditioned through the KL term's 2 / sigma)")
-        readings = {f"metric {k}": ("metric", m_on[k], m_off[k]) for k in m_on}
-        stats = [(b, off.generator.get_buffer(n)) for n, b in on.generator.named_buffers()]
-        readings["generator BN stats"] = ("bn", torch.cat([a.flatten() for a, _ in stats]),
-                                          torch.cat([b.flatten() for _, b in stats]))
-        for module in grads_on:
-            readings[f"{module} grads, fixed tem cotangent"] = ("grads", grads_on[module], grads_off[module])
-        for what, (kind, a, b) in readings.items():
-            a, b = a.double(), b.double()
-            if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
-                raise AssertionError(f"{tag} {what}: not finite")
-            if kind == "grads":
-                rel, how = ((a - b).norm() / b.norm()).item(), "relative L2 difference"
-            else:
-                rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-                how = "max abs diff / max(1, max abs)"
-            limit = STEP_TOL[tag][kind]
-            ok = rel <= limit
-            log(f"  {tag} {what}: {how} {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{tag}: kernels-on {what} disagrees with kernels-off")
         del on, off
 
     log(f"phase 6: times on {card} (medians of 5 after 2 warm-ups)")
@@ -4148,7 +4198,7 @@ def phase_tp_steps(tmp: Path, card: str) -> dict:
 
 
 TP_CLI_BERT = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=512,
-                   max_position_embeddings=64)  # head dim 64, which the card's attention kernels take
+                   max_position_embeddings=64)  # head dim 64
 TP_CLI_SEQ = 32
 
 
@@ -4619,6 +4669,405 @@ def phase_weights_day(vq_argmin, attention, layernorm, card) -> None:
     log(f"phase 13: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# ------------------------------------------ attention over every shape
+
+# the covering grid: bf16 and f32, head dims from BertConfig.tiny's 8 to
+# past the tensor cores' 256, lengths from 1 to twice BERT's positions
+SHAPES_DIMS = (8, 16, 40, 64, 128, 256, 320)
+SHAPES_LENGTHS = (1, 77, 128, 136, 256, 512, 1024)
+SHAPES_MASKS = (None, "ragged", "fully_masked_row")
+SHAPES_B, SHAPES_HEADS = 3, 2
+# the timed shapes (B, T, H, heads), bf16: the stage-1 attention at
+# seq_len 256 and 512, at 128 (the whole-head kernels) and at 128 with
+# head dims 32 and 128
+SHAPES_TIMED = {"t256": (256, 256, 768, 12), "t512": (256, 512, 768, 12), "t128": TRAIN_ATTN,
+                "d32": (256, 128, 768, 24), "d128": (256, 128, 768, 6)}
+# the full-width stage-1 step at these lengths, batch 128 with remat (the
+# text forward's activations at T = 512 do not fit the card without it);
+# kernels on vs off at batch 32, where phase 6's check (its text forward
+# without remat) fits
+SHAPES_STEP_LENGTHS = (256, 512)
+SHAPES_CHECK_BATCH = 32
+# the whole-head kernels' device times at (256, 128, 768) bf16, rate 0.1,
+# in PERF.md's kernel table (an H100 at 700 W): forward, backward
+WHOLE_HEAD_MS = {"fwd": 0.1485, "bwd": 0.3229}
+
+
+def shapes_mask(kind, B, T):
+    """None, ragged rows (row 0 full, each row keeps at least one key), or
+    the same with the last row fully masked."""
+    import torch
+
+    if kind is None:
+        return None
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    for b in range(1, B):
+        mask[b, max(1, T - (b * T) // (B + 1)):] = 0
+    if kind == "fully_masked_row":
+        mask[-1] = 0
+    return mask
+
+
+def keep_bits_read_back(attention, B, nh, T, d, dtype, rate, seed):
+    """The keep-mask bits as the kernels drew them: with q = k = 0 every p
+    is 1; v's key j < d a one-hot in head dim j makes o[i, j] the kept p of
+    (query i, key j) over l, and dO's query i < d a one-hot makes dv[j, i]
+    that of (query i, key j). Returns the forward's bits for keys < min(T,
+    d) and the backward's for queries < min(T, d), [row, head, query,
+    key]."""
+    import torch
+
+    n = min(T, d)
+    zeros = torch.zeros((B, T, nh * d), dtype=dtype, device="cuda")
+    eye = torch.zeros((B, T, nh, d), dtype=dtype, device="cuda")
+    eye[:, torch.arange(n), :, torch.arange(n)] = 1
+    eye = eye.reshape(B, T, nh * d)
+    o, m, l = attention.attention_fwd(zeros, zeros, eye, None, nh, rate, seed)
+    _, _, dv = attention.attention_bwd(zeros, zeros, eye, eye, None, m, l, nh, rate, seed)
+    fwd = o.reshape(B, T, nh, d)[..., :n].permute(0, 2, 1, 3) > 0
+    bwd = dv.reshape(B, T, nh, d)[..., :n].permute(0, 2, 3, 1) > 0
+    return fwd, bwd
+
+
+def check_shape_case(attention, dtype, tag, q, k, v, do, mask, nh, rate, seed, where) -> tuple:
+    """One case of the grid through the wrappers against the plain
+    versions at the phase-2 limits (m at atol 1e-5 on either route: the
+    FMA kernels' sums over d run in 64-wide pieces, in another order than
+    the plain version's GEMM). Returns the max abs errors of o and of the
+    gradients."""
+    import torch
+
+    o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, seed)
+    grads = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, seed)
+    torch.cuda.synchronize()
+    ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, seed)
+    err_o = compare(f"{where} o", o, ro, *TOL[f"attn_o_{tag}"], quiet=True)
+    compare(f"{where} m", m, rm, *TOL["attn_m_mma"], quiet=True)
+    compare(f"{where} l", l, rl, *TOL["attn_ml"], quiet=True)
+    want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, seed)
+    err_g = max(compare(f"{where} {name}", g, w, *TOL[f"attn_grad_{tag}"], quiet=True)
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want))
+    return err_o, err_g
+
+
+def phase_shapes_grid(attention, layernorm, gen):
+    """Phase 14 (a): the attention pair over the covering grid, each case
+    on the route ``kernel_route`` names (its counter read), against the
+    plain versions; the keep bits read back; one planted fault."""
+    import torch
+
+    log(f"phase 14 (a): attention over the grid: f32 and bf16 x head dims {SHAPES_DIMS} x T "
+        f"{SHAPES_LENGTHS} x masks (none, ragged, fully masked row) x rates 0, 0.1; B {SHAPES_B}, "
+        f"{SHAPES_HEADS} heads")
+    set_tf32(False)
+    t0 = time.perf_counter()
+    cases = 0
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in SHAPES_DIMS:
+            route = attention.kernel_route(dtype, d)
+            worst = [0.0, 0.0]
+            for T in SHAPES_LENGTHS:
+                B, nh = SHAPES_B, SHAPES_HEADS
+                q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").to(dtype)
+                               for _ in range(4))
+                for kind in SHAPES_MASKS:
+                    mask = shapes_mask(kind, B, T)
+                    for rate in (0.0, 0.1):
+                        reset_counts(attention, layernorm)
+                        errs = check_shape_case(attention, dtype, tag, q, k, v, do, mask, nh, rate, SEED + 14,
+                                                f"attention {tag} d {d} T {T} mask {kind} rate {rate}")
+                        counts = read_counts(attention, layernorm)
+                        mma = int(route == "mma")
+                        if (counts["attention"], counts["attention_bwd"]) != (1, 1) or \
+                                (counts["attention_mma"], counts["attention_bwd_mma"]) != (mma, mma):
+                            raise AssertionError(f"attention {tag} d {d} T {T}: launches {counts}, "
+                                                 f"route {route}")
+                        worst = [max(a, b) for a, b in zip(worst, errs)]
+                        cases += 1
+                fwd, bwd = keep_bits_read_back(attention, B, nh, T, d, dtype, 0.1, SEED + 15)
+                keep = attention.keep_mask(B, nh, T, SEED + 15, 0.1, "cuda")
+                n = min(T, d)
+                if not (torch.equal(fwd, keep[..., :n]) and torch.equal(bwd, keep[..., :n, :])):
+                    raise AssertionError(f"attention {tag} d {d} T {T}: the kernels' keep bits differ "
+                                         f"from the plain version's")
+            log(f"  {tag} d {d}: {route} route over every T, mask and rate: max abs o {worst[0]:.3e}, "
+                f"dq/dk/dv {worst[1]:.3e}; keep bits equal forward and backward ok")
+    log(f"  {cases} cases, each on its route, {time.perf_counter() - t0:.1f} s")
+
+    # planted: the scale left at 1 / sqrt(64) = 1/8 whatever the head dim
+    B, T, d, nh = SHAPES_B, 136, 32, SHAPES_HEADS
+    q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").bfloat16() for _ in range(4))
+    mask = shapes_mask("ragged", B, T)
+    right = attention._scale
+    attention._scale = lambda hidden, heads: 0.125
+    try:
+        must_catch("kernels whose scale stays 1/8 at head dim 32",
+                   lambda: check_shape_case(attention, torch.bfloat16, "bf16", q, k, v, do, mask, nh, 0.1,
+                                            SEED + 14, f"attention bf16 d {d} T {T}, scale 1/8"))
+    finally:
+        attention._scale = right
+
+
+def shapes_times(attention, name, shape, gen, card) -> dict:
+    """Phase 14 (b): the pair at ``shape`` (bf16, the phase-2 mask): the
+    wrappers by CUDA events back to back in turns with the plain versions
+    (kernel, plain, kernel) and by profiler device time, at rate 0.1 and
+    0; SDPA and its autograd backward at rate 0 (used nowhere in the
+    port); the bound; the max abs error against the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, H, nh = shape
+    q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
+    do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for rate in (0.1, 0.0):
+        _, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, SEED)
+        fns = {"fwd": (lambda: attention.attention_fwd(q, k, v, mask, nh, rate, SEED),
+                       lambda: attention.attention_reference(q, k, v, mask, nh, rate, SEED)),
+               "bwd": (lambda: attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, SEED),
+                       lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, SEED))}
+        for which, (kernel, plain) in fns.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            del got, want
+            turns = [cuda_ms(kernel, warmup=1, runs=3, inner=5)]
+            plain_ms = cuda_ms(plain, warmup=1, runs=1, inner=2)
+            turns.append(cuda_ms(kernel, warmup=1, runs=3, inner=5))
+            t = {"ms": statistics.mean(turns), "device_ms": device_ms(kernel, calls=5), "plain_ms": plain_ms,
+                 "max_abs_err": err, **attention_bound(shape, 2, which == "bwd")}
+            out[which, rate] = t
+            log(f"  attention {which} bf16 {shape[:3]} {nh} heads (d {H // nh}) rate {rate}: kernel "
+                f"{t['ms']:.4f} ms back to back (turns {turns[0]:.4f}, {turns[1]:.4f}), device "
+                f"{t['device_ms']:.4f} ms; plain {plain_ms:.4f} ms; bound {t['bound_ms']:.5f} ms by "
+                f"{t['bound_by']}, device / bound {t['device_ms'] / t['bound_ms']:.2f}; max abs err "
+                f"{err:.3e} [{card}]")
+    (qh, kh, vh), keep = sdpa_inputs(q, k, v, mask, nh)
+    sdpa = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), inner=5)}
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+    doh = do.reshape(B, T, nh, -1).transpose(1, 2)
+    sdpa["bwd"] = cuda_ms(lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True), inner=5)
+    rows = {}
+    for which in ("fwd", "bwd"):
+        t, t0 = out[which, 0.1], out[which, 0.0]
+        rows[which] = {"shape": list(shape[:3]), "heads": nh, "rate": 0.1, **kernel_entry(t),
+                       "device_ms": t["device_ms"], "max_abs_err": t["max_abs_err"], "ms_rate0": t0["ms"],
+                       "device_ms_rate0": t0["device_ms"], "plain_ms_rate0": t0["plain_ms"],
+                       "library_ms": sdpa[which]}
+        log(f"  {name} {which} at rate 0: kernel {t0['ms']:.4f} ms (device {t0['device_ms']:.4f}), "
+            f"{'F.scaled_dot_product_attention' if which == 'fwd' else 'its autograd backward'} "
+            f"{sdpa[which]:.4f} ms [{card}]")
+    return rows
+
+
+def shapes_step_config(T, heads, fused, text_dropout=True, remat=False):
+    import dataclasses
+
+    import torch
+
+    cfg = train_config(fused, text_dropout, torch.bfloat16)
+    return dataclasses.replace(cfg, seq_len=T, remat=remat,
+                               bert=dataclasses.replace(cfg.bert, num_heads=heads))
+
+
+def shapes_step_launches(attention, layernorm, cfg, gen, batch) -> tuple:
+    """One stage-1 step of ``cfg`` from a seeded init: its launch counts,
+    which must be 12 + 12 attention on the tensor-core kernels and 25 + 25
+    LayerNorm, with finite metrics."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage1 import Stage1System
+
+    system = Stage1System(cfg, device="cuda", generator=gen)
+    data = train_batch(cfg, gen, batch)
+    reset_counts(attention, layernorm)
+    metrics = system.train_step(data, generator=gen, host_generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    counts = read_counts(attention, layernorm)
+    if counts != WITH_BACKWARD:
+        raise AssertionError(f"stage-1 step T {cfg.seq_len}, {cfg.bert.num_heads} heads: launches {counts}, "
+                             f"expected {WITH_BACKWARD}")
+    if not all(map(torch.isfinite, metrics.values())):
+        raise AssertionError(f"stage-1 step T {cfg.seq_len}: metrics not finite")
+    return system, data, counts
+
+
+def phase_shapes_steps(attention, layernorm, gen, card) -> dict:
+    """Phase 14 (c): the full-width stage-1 step at seq_len 256 and 512
+    (bf16, ``--fused_attn`` with 16-bit dropout masks and ``--fused_ln``,
+    text dropout on): one step at batch 32 without remat for its launches;
+    then at batch 128 with remat (else the largest batch of 64, 32 that
+    fits, with a log line) the step with the kernels and with the plain
+    attention and LayerNorm, in turns; at 512 phase 6's kernels-on-vs-off
+    check at batch 32. Then one step each with 24 heads of 32 and 6 heads
+    of 128 at seq_len 128 (batch 32), for their launches. Returns each
+    run's launch counts."""
+    import torch
+
+    launches = {}
+    for T in SHAPES_STEP_LENGTHS:
+        log(f"phase 14 (c): the full-width stage-1 step at seq_len {T}, bf16")
+        torch.cuda.empty_cache()
+        system, _, counts = shapes_step_launches(attention, layernorm, shapes_step_config(T, 12, True), gen,
+                                                 SHAPES_CHECK_BATCH)
+        launches[f"t{T}"] = counts
+        log(f"  launches in one step (batch {SHAPES_CHECK_BATCH}, no remat): {counts}")
+        state = {k: v.clone() for k, v in system.state_dict().items()}
+        del system
+        for batch_size in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4):
+            torch.cuda.empty_cache()
+            try:
+                shapes_step_times(state, T, batch_size, gen, card)
+                break
+            except torch.cuda.OutOfMemoryError:
+                log(f"  batch {batch_size} with remat does not fit the card at seq_len {T}; halving it")
+        else:
+            raise AssertionError(f"seq_len {T}: no batch of 32 or more fits the card with remat")
+        del state
+        torch.cuda.empty_cache()
+        if T == max(SHAPES_STEP_LENGTHS):
+            shapes_on_off(gen, T)
+    for heads in (24, 6):
+        d = 768 // heads
+        log(f"phase 14 (c): one stage-1 step with {heads} heads of {d}, seq_len 128, batch {SHAPES_CHECK_BATCH}")
+        system, _, counts = shapes_step_launches(attention, layernorm, shapes_step_config(128, heads, True), gen,
+                                                 SHAPES_CHECK_BATCH)
+        launches[f"d{d}"] = counts
+        log(f"  launches in one step: {counts}")
+        del system
+        torch.cuda.empty_cache()
+    return launches
+
+
+def shapes_step_times(state, T, batch_size, gen, card) -> None:
+    """The step at seq_len ``T`` and ``batch_size`` with remat from
+    ``state``, kernels on and off: one warm-up each, then 3 each in turns
+    (host clock around a synchronised step)."""
+    import torch
+
+    cfg = {tag: shapes_step_config(T, 12, tag == "on", remat=True) for tag in ("on", "off")}
+    systems = {tag: train_system(cfg[tag], state) for tag in cfg}
+    batch = train_batch(cfg["on"], gen, batch_size)
+    gens = {k: (torch.Generator(device="cuda").manual_seed(1), torch.Generator().manual_seed(2)) for k in systems}
+
+    def step(tag):
+        return systems[tag].train_step(batch, generator=gens[tag][0], host_generator=gens[tag][1])
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        step("on")
+        step("off")
+        samples = {"on": [], "off": []}
+        for i in range(3):
+            for tag in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                samples[tag].append(wall_ms(lambda: step(tag), runs=1))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        del systems
+    for tag in ("on", "off"):
+        ms = statistics.median(samples[tag])
+        log(f"  train_step seq_len {T} batch {batch_size} bf16 remat, kernels {tag}: {ms:.3f} ms, "
+            f"{batch_size / ms * 1e3:.1f} img/s (steps {', '.join(f'{t:.1f}' for t in samples[tag])}) [{card}]")
+    log(f"  peak allocated over the two sides' steps: {peak:.3f} GiB")
+
+
+def shapes_on_off(gen, T):
+    """Phase 6's kernels-on-vs-off check on the step at seq_len ``T``, batch
+    ``SHAPES_CHECK_BATCH``, text dropout off, bf16: the 4 metrics, the
+    generator's BatchNorm statistics, the encoder's and projection's
+    gradients under a fixed cotangent of tem, at ``STEP_TOL['bf16']``."""
+    import torch
+
+    from imagegenerator_tpu_torch.train.stage1 import Stage1System
+
+    log(f"phase 14 (c): one step at seq_len {T}, batch {SHAPES_CHECK_BATCH}, kernels on vs off (text dropout off)")
+    on_cfg = shapes_step_config(T, 12, True, text_dropout=False)
+    state = Stage1System(on_cfg, device="cuda", generator=gen).state_dict()
+    batch = train_batch(on_cfg, gen, SHAPES_CHECK_BATCH)
+    noise = train_noise(on_cfg, gen, SHAPES_CHECK_BATCH)
+    cot = torch.randn((2 * SHAPES_CHECK_BATCH, on_cfg.tem_size), generator=gen, device="cuda")
+    on = train_system(on_cfg, state)
+    off = train_system(shapes_step_config(T, 12, False, text_dropout=False), state)
+    readings = on_off_readings(on, off, batch, noise, cot)
+    hold_on_off("bf16", readings)
+
+
+def shapes_tiny_step(attention, layernorm):
+    """Phase 14 (d): the stage-1 step at ``Stage1Config.tiny`` with
+    ``fused_attention`` (BertConfig.tiny: 2 heads of 8, T = 8), text
+    dropout on, f32, on the card (off cuDNN) against the same step on the
+    CPU, the dropout masks and attention seeds drawn once on the CPU and
+    replayed on both, at phase 8 (c)'s limits; the card's attention runs
+    on the FMA kernels (f32), the CPU's on the plain versions."""
+    import dataclasses
+
+    import torch
+
+    from imagegenerator_tpu_torch.train import stage1
+
+    log("phase 14 (d): the tiny stage-1 step (BertConfig.tiny, head dim 8) with fused attention, f32, "
+        "card vs CPU")
+    gen = torch.Generator().manual_seed(SEED + 14)
+    cfg = stage1.Stage1Config.tiny(n_critic=2)
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert, fused_attention=True, fused_ln=True))
+    init = stage1.Stage1System(cfg, device="cpu", generator=gen).state_dict()
+    B, T, r = DP_TINY_BATCH, cfg.seq_len, cfg.resolution
+    lengths = torch.randint(3, T + 1, (B,), generator=gen)
+    batch = {"input_ids": torch.randint(1, cfg.bert.vocab_size, (B, T), generator=gen, dtype=torch.int32),
+             "attention_mask": (torch.arange(T)[None, :] < lengths[:, None]).int(),
+             "image": torch.randint(0, 256, (B, r, r, 3), generator=gen, dtype=torch.uint8)}
+    n = cfg.n_critic
+    noise = {"perm": torch.randperm(B, generator=gen), "ca_eps": torch.randn((n, B, cfg.c_dim), generator=gen),
+             "z": torch.randn((n, B, cfg.z_dim), generator=gen), "gp_eps": torch.rand((n, B, 1, 1, 1), generator=gen)}
+
+    def build(dev):
+        system = stage1.Stage1System(cfg, device="meta")
+        system.load_state_dict({k: v.clone().to(dev) for k, v in init.items()}, assign=True)
+        return system
+
+    cpu, card = build("cpu"), build("cuda")
+    drawn = cpu.encoder.draw(2 * B, T, "cpu", generator=gen, host_generator=torch.Generator().manual_seed(SEED))
+    noise["text_masks"], noise["attn_seeds"] = drawn.masks, drawn.seeds
+    m_cpu = cpu.train_step(batch, noise=noise)
+    with exact_f32():
+        reset_counts(attention, layernorm)
+        m_card = card.train_step({k: v.cuda() for k, v in batch.items()},
+                                 noise={k: [t.cuda() if torch.is_tensor(t) else t for t in v]
+                                        if isinstance(v, list) else v.cuda() for k, v in noise.items()})
+        torch.cuda.synchronize()
+    counts = read_counts(attention, layernorm)
+    log(f"  launches on the card: {counts}")
+    if (counts["attention"], counts["attention_dropout"], counts["attention_bwd"]) != (1, 1, 1) or \
+            counts["attention_mma"] or counts["attention_bwd_mma"]:
+        raise AssertionError(f"phase 14 (d): attention launches {counts}, expected one of each on the FMA kernels")
+    hold_tiny_step("tiny stage-1 step with fused attention, card vs CPU", cpu, m_cpu, card, m_card,
+                   {m: m for m in stage1.MODULES}, cfg.disc_channels, stage1_rules=True)
+
+
+def phase_shapes(attention, layernorm, gen, card) -> tuple:
+    """Phase 14: the attention kernels over every shape the JAX fused path
+    takes. Returns the kernels line's rows and the step launches."""
+    t0 = time.perf_counter()
+    phase_shapes_grid(attention, layernorm, gen)
+    log(f"phase 14 (b): times on {card}")
+    import torch
+
+    rows = {}
+    for name, shape in SHAPES_TIMED.items():
+        rows[name] = shapes_times(attention, name, shape, gen, card)
+        torch.cuda.empty_cache()
+    for which in ("fwd", "bwd"):
+        dev = rows["t128"][which]["device_ms"]
+        log(f"  the whole-head kernels at {TRAIN_ATTN[:3]} rate 0.1, {which}: device {dev:.4f} ms against "
+            f"PERF.md's {WHOLE_HEAD_MS[which]} ({100 * (dev / WHOLE_HEAD_MS[which] - 1):+.1f}%) [{card}]")
+    launches = phase_shapes_steps(attention, layernorm, gen, card)
+    shapes_tiny_step(attention, layernorm)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows, launches
+
+
 def main() -> int:
     import argparse
 
@@ -4626,7 +5075,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "bench", "weights-day",
-                                           "d2-trace", "tiny-trace", "tiny-witness"],
+                                           "attention-shapes", "d2-trace", "tiny-trace", "tiny-witness"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
@@ -4711,6 +5160,8 @@ def main() -> int:
         phase_bench(gen, card)
     if args.only == "weights-day":
         phase_weights_day(vq_argmin, attention, layernorm, card)
+    if args.only == "attention-shapes":
+        phase_shapes(attention, layernorm, gen, card)
     if args.only == "d2-trace":
         phase_d2_trace(card)
     if args.only == "tiny-trace":
@@ -4744,6 +5195,8 @@ def main() -> int:
     phase_bench(gen, card, train2_times["tem_ms"] if train2_size == TRAIN2_BATCH else None)
     torch.cuda.empty_cache()
     phase_weights_day(vq_argmin, attention, layernorm, card)
+    torch.cuda.empty_cache()
+    shape_rows, shape_launches = phase_shapes(attention, layernorm, gen, card)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the
@@ -4778,6 +5231,21 @@ def main() -> int:
          "source": "imagegenerator_tpu_torch/csrc/attention_bwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/attention.py:308",
          "launches": tp_launches["attention_bwd"], **tp_t["bwd"]},
+    ]
+    # phase 14: the pair at the stage-1 step's shapes at seq_len 256 and 512
+    # (the tiled tensor-core kernels) and at head dims 32 and 128; launches
+    # from one step of that configuration (attention_*_t128: the whole-head
+    # kernels timed again in phase 14, beside the new rows)
+    for key, what in (("t256", "seq_len 256"), ("t512", "seq_len 512"), ("d32", "24 heads of 32"),
+                      ("d128", "6 heads of 128"), ("t128", "seq_len 128, the whole-head kernels")):
+        counted = shape_launches.get(key, train_launches)
+        for which, replaces, count in (("fwd_dropout", 277, "attention_dropout"), ("bwd", 308, "attention_bwd")):
+            row = shape_rows[key]["fwd" if which == "fwd_dropout" else "bwd"]
+            kernels.append({"name": f"attention_{which}_{key}", "route": "cuda",
+                            "source": f"imagegenerator_tpu_torch/csrc/attention_{which[:3]}.cu",
+                            "replaces": f"imagegenerator_tpu/ops/pallas/attention.py:{replaces}",
+                            "launches": counted[count], "launches_on": what, **row})
+    kernels += [
         {"name": "layernorm_fwd", "route": "cuda",
          "source": "imagegenerator_tpu_torch/csrc/layernorm_fwd.cu",
          "replaces": "imagegenerator_tpu/ops/pallas/layernorm.py:99",

@@ -1,12 +1,16 @@
 // Helpers shared by the attention forward and backward kernels
-// (attention_fwd.cu, attention_bwd.cu), both routes: the dropout
-// keep-mask, and the f32 tile staging of the FMA route (f32 inputs, or
-// 128 < T <= 512). The tensor-core route's pieces are in attention_mma.cuh.
+// (attention_fwd.cu, attention_bwd.cu), all routes: the dropout keep-mask,
+// and the f32 tile arithmetic of the FMA route (f32 inputs, or bf16 with a
+// head dim over 256). The tensor-core routes' pieces are in
+// attention_mma.cuh.
 //
-// Layout: q, k, v (and do, dq, dk, dv) are (B, T, H) with H = heads * 64,
-// head h in columns [64h, 64h + 64). A block of the FMA route stages
-// 64-row tiles of one head as f32 in shared memory with the odd row stride
-// 65, so the 16 rows a warp touches fall in distinct banks.
+// Layout: q, k, v (and do, dq, dk, dv) are (B, T, H) with H = heads * d,
+// head h in columns [d h, d h + d), d any multiple of 8. A block of the
+// FMA route stages 64 x 64 pieces of one head (64 rows, 64 of its d
+// columns) as f32 in shared memory with the odd row stride 65, so the 16
+// rows a warp touches fall in distinct banks; a head dim over 64 is walked
+// in such pieces, and so is T, so the route takes any d and any T in
+// 49,920 bytes of shared memory.
 //
 // Dropout keep-mask: the counter hash of the JAX package's interpret mode
 // (imagegenerator_tpu/ops/pallas/attention.py::_hash_bits, _keep_mask).
@@ -29,11 +33,10 @@
 
 namespace attn {
 
-constexpr int kHeadDim = 64;
-constexpr int kTile = 64;              // rows per tile (queries or keys)
-constexpr int kThreads = 128;          // two threads per tile row
-constexpr int kStride = kHeadDim + 1;  // shared-memory row stride of a tile
-constexpr int kCols = kTile / 2;       // columns each thread owns in a tile
+constexpr int kTile = 64;              // rows (queries or keys) and head dims of a piece
+constexpr int kThreads = 128;          // two threads per row of a piece
+constexpr int kStride = kTile + 1;     // shared-memory row stride of a piece
+constexpr int kCols = kTile / 2;       // columns each thread owns in a piece
 constexpr float kBigNeg = -3e7f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -45,29 +48,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 __device__ __forceinline__ float round_as(float x, float) { return x; }
 __device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// Rows [row0, row0 + kTile) of one head's (T, 64) slice into shared memory
-// as f32; rows at or past T read as zero. src points at (b, 0, 64 * head).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int seq, int hidden) {
-  for (int i = threadIdx.x; i < kTile * kHeadDim; i += kThreads) {
-    const int r = i / kHeadDim;
-    const int d = i % kHeadDim;
-    const int row = row0 + r;
-    dst[r * kStride + d] = row < seq ? to_f32(src[(size_t)row * hidden + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // The salt of (seed, batch row, head), wrapping as the JAX int32 sum does.
@@ -100,6 +80,90 @@ struct Dropout {
 // keep * inv_keep for (query r, key c): inv_keep or 0.
 __device__ __forceinline__ float keep_scale(const Dropout& dr, unsigned salt, int r, int c) {
   return hash_bits((unsigned)r, (unsigned)c, salt) >= dr.thresh ? dr.inv_keep : 0.f;
+}
+
+// A scaled score with the key-padding mask applied (-3e7 where mask <= 0).
+__device__ __forceinline__ float masked_score(float dot, float scale, const int* mask_row, int col) {
+  return mask_row != nullptr && mask_row[col] <= 0 ? kBigNeg : dot * scale;
+}
+
+// ------------------------------------------------------------- FMA route
+//
+// A block of kThreads works on 64 rows of one (batch row, head); thread
+// tid owns row tid / 2 and the 32 interleaved columns 2 c + tid % 2 of a
+// 64-wide piece, with one shared-memory load per FMA.
+
+// Rows [row0, row0 + 64) and columns [col0, col0 + 64) of one head's
+// (T, d) slice into shared memory as f32; rows at or past T and columns
+// at or past d read as zero. src points at (b, 0, d * head).
+template <typename T>
+__device__ __forceinline__ void load_piece(float* dst, const T* __restrict__ src, int row0, int col0,
+                                           int seq, int hidden, int dim) {
+  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+    const int r = i / kTile;
+    const int c = i % kTile;
+    const int row = row0 + r;
+    const int col = col0 + c;
+    dst[r * kStride + c] = row < seq && col < dim ? to_f32(src[(size_t)row * hidden + col]) : 0.f;
+  }
+}
+
+// acc[c] += A[a0 + row] . B[b0 + 2 c + half] over the head's d columns,
+// for the thread's row and columns: A and B are two (T, d) slices, walked
+// in 64-wide pieces of d through the shared tiles as_ and bs_. Starts and
+// ends with the block in step (it begins with a barrier).
+template <typename T>
+__device__ __forceinline__ void fma_nt(float (&acc)[kCols], float* as_, float* bs_,
+                                       const T* __restrict__ a, int a0, const T* __restrict__ b,
+                                       int b0, int seq, int hidden, int dim) {
+  const int row = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  for (int c0 = 0; c0 < dim; c0 += kTile) {
+    __syncthreads();
+    load_piece(as_, a, a0, c0, seq, hidden, dim);
+    load_piece(bs_, b, b0, c0, seq, hidden, dim);
+    __syncthreads();
+    const int n = min(kTile, dim - c0);
+    for (int d = 0; d < n; ++d) {
+      const float x = as_[row * kStride + d];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[c] = fmaf(x, bs_[(2 * c + half) * kStride + d], acc[c]);
+    }
+  }
+}
+
+// acc[c] += sum_j P[row][j] X[x0 + j][c0 + 2 c + half]: P a 64 x 64 tile
+// the block wrote to shared memory (ps), X a (T, d) slice staged 64 rows
+// and 64 columns at a time through xs. Begins with a barrier, so the
+// writes to ps before the call are seen.
+template <typename T>
+__device__ __forceinline__ void fma_nn(float (&acc)[kCols], const float* ps, float* xs,
+                                       const T* __restrict__ x, int x0, int c0, int seq, int hidden,
+                                       int dim) {
+  const int row = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  __syncthreads();
+  load_piece(xs, x, x0, c0, seq, hidden, dim);
+  __syncthreads();
+  const int n = min(kTile, seq - x0);
+  for (int j = 0; j < n; ++j) {
+    const float p = ps[row * kStride + j];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = fmaf(p, xs[j * kStride + 2 * c + half], acc[c]);
+  }
+}
+
+// The thread's 32 columns of a 64-wide piece of an output row, those
+// before d, divided by div (1 leaves them as they are), as T.
+template <typename T>
+__device__ __forceinline__ void store_piece(T* __restrict__ dst_row, const float (&acc)[kCols],
+                                            int c0, int dim, float div) {
+  const int half = threadIdx.x & 1;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int col = c0 + 2 * c + half;
+    if (col < dim) store(dst_row + col, acc[c] / div);
+  }
 }
 
 }  // namespace attn

@@ -25,8 +25,7 @@ tiny widths:
    gathered whole on rank 0) and a restore (each rank takes its slices
    again), checked slice for slice;
 5. the stage-1 data-parallel step with the fused attention and
-   LayerNorm kernels (a BERT of head dim 64, which the card's kernels
-   take) over the ``n`` ranks.
+   LayerNorm kernels (a BERT of head dim 64) over the ``n`` ranks.
 
 Where JAX needs ``n >= 4`` for steps 3 and 4, the port runs them at any
 even ``n`` (``(1, 2)`` at ``n = 2``). Rank 0 prints a line per step and

@@ -176,10 +176,13 @@ def _dropout(cfg: BertConfig, x, deterministic: bool, draws: Draws, heads=None):
 
 
 def _fused(cfg: BertConfig, is_cuda: bool, seq_len: int) -> bool:
-    """Whether attention takes the fused kernels: on the card always
-    (``fused_attention`` set), on the CPU at the JAX package's shapes."""
-    return cfg.fused_attention and (
-        is_cuda or attn_kernel.supported(seq_len, cfg.hidden_size, cfg.num_heads))
+    """Whether attention takes the fused kernels (``fused_attention``
+    set): on the card at every shape the kernels take (the JAX package's
+    head dims, any T), on the CPU at the JAX package's shapes; elsewhere
+    the einsum attention, as in the JAX package."""
+    if is_cuda:
+        return cfg.fused_attention and attn_kernel.takes(cfg.hidden_size, cfg.num_heads)
+    return cfg.fused_attention and attn_kernel.supported(seq_len, cfg.hidden_size, cfg.num_heads)
 
 
 def _embedding(n, d, device, generator):

@@ -13,30 +13,42 @@ on a CPU tensor they run ``attention_reference`` and
 functions. ``fused_attention`` is a ``torch.autograd.Function`` whose
 forward saves what the TPU custom VJP saves (q, k, v, mask, m, l).
 
-What bounds them on the card: bytes. Per head the products are 128 x 128
-x 64, microseconds of tensor-core time, while q, k, v, o (and do, dq, dk,
-dv) each cross device memory once. The plain versions write and reread
-the (B, heads, T, T) scores and probabilities between a dozen small
-kernels each way; the kernels keep them on the SM.
+They take every shape the JAX fused path takes (``supported``: head dim
+d a multiple of 8, at least 8) at any T >= 1, not only T % 8 == 0
+(``takes``). What bounds them on the card: bytes at BERT's T = 128,
+operations from T of a few hundred, where the work per head grows as
+T^2. The plain versions write and reread the (B, heads, T, T) scores and
+probabilities between a dozen small kernels each way; the kernels keep
+them on the SM.
 
-Two routes, one rule on shapes (``kernel_route``): bf16 inputs with
-T <= 128, every shape the system runs, take the tensor-core kernels
-(``mma.sync`` m16n8k16 on bf16 tiles in shared memory, scores and
-probabilities in registers, the backward one launch with each of its
-five products once); f32 inputs, where tensor cores would mean TF32, and
-128 < T <= 512 take the FMA kernels (f32 tiles in shared memory, the
-backward two launches with the row term D through a device buffer). It
-is no fallback: on a CUDA tensor the wrapper launches the kernel the rule
-names or raises.
+Two routes, one rule on dtype and head dim (``kernel_route``): bf16
+inputs with d <= 256 take the tensor cores (``mma.sync`` m16n8k16 on bf16
+tiles in shared memory, scores and probabilities in registers), at any
+T: a kernel that keeps a whole head in shared memory where d = 64 and
+T <= 128 (the backward one launch with each of its five products once),
+else kernels that walk the keys (and in the backward's second launch the
+queries) in tiles, two passes so that p is formed against the final row
+max as on the TPU. f32 inputs, where tensor cores would mean TF32, and
+bf16 with d > 256 take the FMA kernels (64 x 64 f32 pieces in shared
+memory, the same two passes, any d and T). Each backward but the
+whole-head one is two launches with the row term D through a device
+buffer. It is no fallback: on a CUDA tensor the wrapper launches the
+kernel the rule names or raises, and it raises only for shapes outside
+the JAX domain or past the grid's and int32's limits.
 
-Numerics follow the TPU kernels on both routes: products and sums in f32
-(of exact bf16 products on the tensor cores), masked logits
-filled with -3e7 (so a fully masked row is uniform), ``(m, l)`` kept
-apart rather than as a log-sum-exp so the backward recomputes the
-probabilities with no reductions, probabilities rounded to v's dtype
-before ``p V``, ``1 / l`` folded into the context; in the backward ``pd``
+Numerics follow the TPU kernels on every route: the scale is
+``1 / sqrt(d)`` of the actual head dim, products and sums in f32 (of
+exact bf16 products on the tensor cores), masked logits filled with -3e7
+(so a fully masked row is uniform), ``(m, l)`` kept apart rather than as
+a log-sum-exp so the backward recomputes the probabilities with no
+reductions, l summed from p before dropout, probabilities rounded to v's
+dtype before ``p V``, the context divided by l; in the backward ``pd``
 rounded to do's dtype before ``dv``, ``ds`` zero on masked key columns
-and rounded to q's dtype before ``dq`` and ``dk``.
+and rounded to q's dtype before ``dq`` and ``dk``, ``dq`` summed in a
+fixed order (no atomics). One departure, in the tiled tensor-core
+kernels: p is ``2^(s scale log2 e - m log2 e)`` by one FMA and the
+``ex2`` unit, within about 1e-6 relative of ``exp(scale s - m)`` for
+scaled scores in the tens; their forward and backward form it alike.
 
 Dropout: the keep-mask is the JAX package's interpret-mode counter hash
 (``_hash_bits``, ``_keep_mask``), addressed by (seed, batch row, head,
@@ -55,9 +67,7 @@ import torch
 from imagegenerator_tpu_torch.ops.kernels import _build
 
 BIG_NEG = -3e7
-HEAD_DIM = 64
-MAX_SEQ = 512
-MMA_MAX_SEQ = 128
+MMA_MAX_HEAD_DIM = 256  # bf16 head dims past this take the FMA kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
@@ -91,14 +101,19 @@ def bwd_flops(batch: int, seq: int, hidden: int) -> int:
     return 8 * batch * seq * seq * hidden
 
 
-def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
-    """Shapes the JAX package's fused path takes; off them BERT runs its
-    einsum attention. The port applies this rule only to CPU tensors, to
-    stay with the JAX encoder. On the card ``fused_attention`` always goes
-    to the kernels ``kernel_route`` names, which take head dim 64 and any
-    0 < T <= 512 and raise otherwise."""
+def takes(hidden: int, num_heads: int) -> bool:
+    """Whether the kernels take this width and head count: a head dim
+    that is a multiple of 8 and at least 8, at any T >= 1."""
     hd = hidden // num_heads
-    return hidden % num_heads == 0 and seq_len % 8 == 0 and hd % 8 == 0 and hd >= 8
+    return hidden % num_heads == 0 and hd % 8 == 0 and hd >= 8
+
+
+def supported(seq_len: int, hidden: int, num_heads: int) -> bool:
+    """Shapes the JAX package's fused path takes (``takes`` and
+    T % 8 == 0); off them BERT runs its einsum attention. BERT applies
+    this rule to CPU tensors, to stay with the JAX encoder; on the card it
+    sends every shape the kernels take (``takes``, any T) to them."""
+    return seq_len % 8 == 0 and takes(hidden, num_heads)
 
 
 # ---------------------------------------------------------------- dropout
@@ -219,10 +234,17 @@ def attention_bwd_reference(q, k, v, do, mask, m, l, num_heads: int, rate: float
 # ------------------------------------------------------------------ kernels
 
 
-def kernel_route(dtype, seq_len: int) -> str:
-    """Which kernels a CUDA tensor of ``dtype`` with T = ``seq_len`` takes:
-    ``"mma"`` (tensor cores) for bf16 at T <= 128, else ``"fma"``."""
-    return "mma" if dtype == torch.bfloat16 and seq_len <= MMA_MAX_SEQ else "fma"
+def kernel_route(dtype, head_dim: int) -> str:
+    """Which kernels a CUDA tensor of ``dtype`` and head dim ``head_dim``
+    takes, at any T: ``"mma"`` (tensor cores) for bf16 with d <= 256,
+    else ``"fma"``. Within the tensor-core route the C entry point takes
+    the whole-head kernels at d = 64 and T <= 128 and the tiled ones
+    elsewhere."""
+    return "mma" if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM else "fma"
+
+
+def _route(q, num_heads: int) -> str:
+    return kernel_route(q.dtype, q.shape[2] // num_heads)
 
 
 @functools.cache
@@ -249,15 +271,15 @@ def _check_cuda(q, others, mask, num_heads):
         raise TypeError(f"attention: dtype {q.dtype} (kernel takes f32, bf16)")
     if not q.is_contiguous() or not all(t.is_contiguous() for _, t in others):
         raise ValueError("attention: q, k, v (and do) must be contiguous")
-    if H % num_heads or H // num_heads != HEAD_DIM:
+    if num_heads < 1 or not takes(H, num_heads):
         raise ValueError(
-            f"attention: hidden {H} / {num_heads} heads; kernel takes "
-            f"head dim {HEAD_DIM}"
+            f"attention: hidden {H} / {num_heads} heads; the kernels take a "
+            "head dim that is a multiple of 8 and at least 8"
         )
-    if not 0 < T <= MAX_SEQ or B > 65535 or B * T * H >= 2**31:
+    if T < 1 or B > 65535 or num_heads > 65535 or B * T * H >= 2**31:
         raise ValueError(
-            f"attention: B={B}, T={T}; kernel takes 0 < T <= {MAX_SEQ}, "
-            f"B <= 65535"
+            f"attention: B={B}, T={T}, H={H}, {num_heads} heads; the kernels "
+            "take T >= 1, B and heads <= 65535, B * T * H < 2**31"
         )
     if mask is not None and (
         mask.shape != (B, T) or mask.dtype != torch.int32
@@ -297,7 +319,7 @@ def _launch_fwd(q, k, v, mask, num_heads, drop, route):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], mma, 1.0 / math.sqrt(HEAD_DIM), *drop,
+            B, T, H, num_heads, _DTYPES[q.dtype], mma, _scale(H, num_heads), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_fwd")
@@ -309,21 +331,21 @@ def _launch_fwd(q, k, v, mask, num_heads, drop, route):
 
 
 def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
-    """Launch the backward kernel (``"mma"``) or kernels (``"fma"``) of
-    ``route`` on checked CUDA tensors."""
+    """Launch the backward kernel or kernels of ``route`` on checked CUDA
+    tensors."""
     global bwd_launches, mma_bwd_launches, flops
     mma = _route_arg(route, (q, k, v, do))
     B, T, H = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # the row term D, from the FMA route's first launch to its second
-    d_row = None if mma else torch.empty_like(m)
+    # the row term D, from a two-launch backward's first launch to its second
+    d_row = torch.empty_like(m)
     with torch.cuda.device(q.device):
         rc = _entry("attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             None if mask is None else mask.data_ptr(),
             m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if d_row is None else d_row.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], mma, 1.0 / math.sqrt(HEAD_DIM), *drop,
+            d_row.data_ptr(),
+            B, T, H, num_heads, _DTYPES[q.dtype], mma, _scale(H, num_heads), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_bwd")
@@ -331,6 +353,12 @@ def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
     mma_bwd_launches += mma
     flops += bwd_flops(B, T, H)
     return dq, dk, dv
+
+
+def _scale(hidden: int, num_heads: int) -> float:
+    """``1 / sqrt(d)`` of the actual head dim, as the JAX kernel takes it
+    from ``H // num_heads``."""
+    return 1.0 / math.sqrt(hidden // num_heads)
 
 
 def _route_arg(route: str, tensors) -> int:
@@ -352,7 +380,7 @@ def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 
     if _device(q) == "cpu":
         return attention_reference(q, k, v, mask, num_heads, rate, seed)
     _check_cuda(q, (("k", k), ("v", v)), mask, num_heads)
-    return _launch_fwd(q, k, v, mask, num_heads, drop, kernel_route(q.dtype, q.shape[1]))
+    return _launch_fwd(q, k, v, mask, num_heads, drop, _route(q, num_heads))
 
 
 def attention_bwd(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0, seed: int = 0):
@@ -365,7 +393,7 @@ def attention_bwd(q, k, v, do, mask, m, l, num_heads: int, rate: float = 0.0, se
         return attention_bwd_reference(q, k, v, do, mask, m, l, num_heads, rate, seed)
     _check_cuda(q, (("k", k), ("v", v), ("do", do)), mask, num_heads)
     _check_stats(q, m, l, num_heads)
-    return _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, kernel_route(q.dtype, q.shape[1]))
+    return _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, _route(q, num_heads))
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -4,13 +4,17 @@ run in interpret mode, output by output (o, m, l); with dropout, the
 keep-mask bit for bit against the interpret-mode ``_keep_mask`` and the
 output and its vjp (dq, dk, dv) against JAX ``fused_attention(...,
 interpret=True)`` with the same seed, with and without a mask and with a
-fully masked row; the wrappers' contract (a CPU tensor takes the
-plain version and counts no launch) and the (dtype, T) rule that names
-the kernels a CUDA tensor takes. The CUDA kernels themselves are
+fully masked row, at BERT-base's head dim 64 and over the shapes the
+JAX fused path takes: head dims 8, 16, 40 and 128, T = 8, 136, 256 and
+520; the wrappers' contract (a CPU tensor takes the plain version and
+counts no launch), the scale of the actual head dim, and the (dtype,
+head dim) rule that names the kernels a CUDA tensor takes. The CUDA kernels themselves are
 held to the plain versions on the card by ``chip_smoke.py`` and
 ``tests/test_torch_kernels_cuda.py``.
 
 Tolerance: rtol = atol = 1e-5 (plain version of a kernel)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +54,8 @@ def _jax_fwd(q, k, v, mask, nh, dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("mask_kind", ["ragged", "fully_masked_row", None])
-@pytest.mark.parametrize("B,T,H,nh", [(3, 16, 64, 2), (2, 128, 768, 12)])
+@pytest.mark.parametrize("B,T,H,nh", [(3, 16, 64, 2), (2, 128, 768, 12),
+                                      (3, 8, 16, 2), (3, 136, 80, 2), (3, 256, 256, 2)])
 def test_plain_matches_pallas_forward(B, T, H, nh, mask_kind):
     q, k, v, mask = _inputs(B, T, H, mask_kind)
     want = _jax_fwd(q, k, v, mask, nh)
@@ -93,17 +98,22 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     assert torch.equal(o, want)
 
 
-@pytest.mark.parametrize("dtype,T,route", [
-    (torch.bfloat16, 1, "mma"), (torch.bfloat16, 77, "mma"), (torch.bfloat16, 128, "mma"),
-    (torch.bfloat16, 129, "fma"), (torch.bfloat16, 512, "fma"),
-    (torch.float32, 1, "fma"), (torch.float32, 77, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 129, "fma"), (torch.float32, 512, "fma"),
+@pytest.mark.parametrize("dtype,T,d,route", [
+    (torch.bfloat16, 1, 64, "mma"), (torch.bfloat16, 77, 64, "mma"), (torch.bfloat16, 128, 64, "mma"),
+    (torch.bfloat16, 129, 64, "mma"), (torch.bfloat16, 512, 64, "mma"),
+    (torch.float32, 1, 64, "fma"), (torch.float32, 77, 64, "fma"), (torch.float32, 128, 64, "fma"),
+    (torch.float32, 129, 64, "fma"), (torch.float32, 512, 64, "fma"),
+    (torch.bfloat16, 1024, 8, "mma"), (torch.bfloat16, 136, 40, "mma"), (torch.bfloat16, 256, 256, "mma"),
+    (torch.bfloat16, 128, 264, "fma"), (torch.bfloat16, 77, 320, "fma"), (torch.float32, 1024, 8, "fma"),
 ])
-def test_kernel_route_is_a_rule_on_dtype_and_length(dtype, T, route):
-    """Tensor cores for bf16 at T <= 128, the FMA kernels for f32 (which
-    would mean TF32) and for longer sequences."""
-    assert attention.kernel_route(dtype, T) == route
-    assert attention.MMA_MAX_SEQ == 128 and attention.MAX_SEQ == 512
+def test_kernel_route_is_a_rule_on_dtype_and_length(dtype, T, d, route):
+    """Tensor cores for bf16 with a head dim up to 256 at any length; the
+    FMA kernels for f32 (which would mean TF32) and for wider heads. The
+    length no longer enters the rule: it picks only the kernel within the
+    tensor-core route (the whole-head one at d = 64, T <= 128)."""
+    assert attention.kernel_route(dtype, d) == route
+    assert attention.MMA_MAX_HEAD_DIM == 256
+    assert attention._route(torch.zeros((1, T, 3 * d), dtype=dtype), 3) == route
 
 
 @pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 77), (torch.bfloat16, 128), (torch.float32, 129)])
@@ -232,3 +242,52 @@ def test_no_kernel_for_other_devices():
 @pytest.mark.parametrize("H,nh", [(64, 1), (768, 12), (48, 4), (20, 4), (30, 4)])
 def test_supported_matches_jax(T, H, nh):
     assert attention.supported(T, H, nh) == jattn.supported(T, H, nh)
+    # the kernels take the same widths at every T
+    assert attention.takes(H, nh) == jattn.supported(8, H, nh)
+
+
+@pytest.mark.parametrize("H,nh", [(768, 12), (768, 24), (768, 6), (256, 8), (16, 2), (640, 2)])
+def test_kernel_scale_is_that_of_the_actual_head_dim(H, nh):
+    """The kernels' scale is 1 / sqrt(d) of d = H // heads, as the JAX
+    kernel computes it (and the plain versions use)."""
+    assert attention._scale(H, nh) == 1.0 / math.sqrt(H // nh)
+    assert jattn.supported(8, H, nh)
+
+
+def _jax_vjp_case(B, T, d, nh, mask, rate, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, T, nh * d)).astype(np.float32) for _ in range(4))
+    want, vjp = _jax_attention(q, k, v, mask, nh, rate, 17)
+    want_grads = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = attention.fused_attention(*leaves, None if mask is None else torch.from_numpy(mask),
+                                    num_heads=nh, dropout_rate=rate, seed=17)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), err_msg="o", **TOL)
+    got.backward(torch.from_numpy(do))
+    for name, g, w in zip(("dq", "dk", "dv"), (t.grad for t in leaves), want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+MASK_KINDS = ("ragged", "fully_masked_row", None)
+
+
+# every head dim and length with both rates; the mask kind turns with
+# them, so each head dim, length and rate meets every kind
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [8, 136, 256])
+@pytest.mark.parametrize("d", [8, 16, 40, 128])
+def test_forward_and_vjp_match_jax_over_head_dims_and_lengths(d, T, rate):
+    kind = MASK_KINDS[([8, 16, 40, 128].index(d) + [8, 136, 256].index(T) + int(rate > 0)) % 3]
+    B, nh = 3, 2
+    mask = _inputs(B, T, nh * d, kind, seed=d + T)[3]
+    _jax_vjp_case(B, T, d, nh, mask, rate, seed=d * T)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_forward_and_vjp_match_jax_past_512_keys(rate):
+    """T = 520: past BERT's 512 positions, where the JAX kernel still holds
+    whole rows; one batch row with its last 220 keys masked."""
+    B, T, d, nh = 1, 520, 16, 2
+    mask = np.ones((B, T), np.int32)
+    mask[:, 300:] = 0
+    _jax_vjp_case(B, T, d, nh, mask, rate, seed=520)

@@ -17,6 +17,7 @@ import torch
 
 from imagegenerator_tpu.data.tokenizer import HashTokenizer as JHashTokenizer
 from imagegenerator_tpu.models import bert as jbert
+from imagegenerator_tpu.ops.pallas import attention as jattn
 from imagegenerator_tpu_torch import convert
 from imagegenerator_tpu_torch.data.tokenizer import HashTokenizer
 from imagegenerator_tpu_torch.models import bert as tbert
@@ -33,6 +34,10 @@ CONFIGS = {
     # encoders take their einsum attention even with fused_attention set
     "tiny_T11": (dict(vocab_size=128, hidden_size=16, num_layers=1, num_heads=2,
                       intermediate_size=32, max_position_embeddings=64), 3, 11),
+    # 8 heads of 32: a head dim the card's kernels took only from when they
+    # took every head dim of the JAX fused path
+    "h8x32": (dict(vocab_size=128, hidden_size=256, num_layers=2, num_heads=8,
+                   intermediate_size=64, max_position_embeddings=64), 3, 24),
 }
 
 
@@ -143,6 +148,24 @@ def test_gelu_flavours_match_jax(approximate):
     with torch.no_grad():
         got = enc(torch.from_numpy(ids), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("hidden,heads,T,card,cpu", [
+    (768, 12, 128, True, True), (256, 8, 24, True, True), (16, 2, 8, True, True),
+    (768, 12, 77, True, False),   # any T on the card; T % 8 on the CPU, as in JAX
+    (768, 12, 520, True, True),
+    (80, 4, 16, False, False),    # head dim 20: einsum attention everywhere, as in JAX
+    (96, 3, 16, True, True), (768, 7, 16, False, False),
+])
+def test_fused_route_follows_the_jax_domain(hidden, heads, T, card, cpu):
+    """``fused_attention`` takes the kernels on the card wherever they take
+    the head dim (the JAX fused path's, at any T) and on the CPU where the
+    JAX package's ``supported`` does; elsewhere both packages run the
+    einsum attention."""
+    cfg = tbert.BertConfig(hidden_size=hidden, num_heads=heads, fused_attention=True)
+    assert tbert._fused(cfg, True, T) == card
+    assert tbert._fused(cfg, False, T) == cpu == jattn.supported(T, hidden, heads)
+    assert not tbert._fused(dataclasses.replace(cfg, fused_attention=False), True, T)
 
 
 def test_config_defaults_match_jax():

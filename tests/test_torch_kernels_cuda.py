@@ -1,9 +1,11 @@
 """The port's hand-written kernels against their plain versions on a CUDA
-card: the attention forward (CUDA C++) over the sequence lengths it
-takes, up to 512, with and without dropout (keep-rate read back); the
-attention backward (CUDA C++) with and without mask and dropout, both on
-the route ``attention.kernel_route`` names (tensor cores for bf16 at
-T <= 128, FMA units otherwise; the counters say which ran); the
+card: the attention forward (CUDA C++) over sequence lengths, with and
+without dropout (keep-rate read back); the attention backward (CUDA C++)
+with and without mask and dropout, both on the route
+``attention.kernel_route`` names (tensor cores for bf16 with a head dim up
+to 256, FMA units otherwise; the counters say which ran); the pair over a
+grid of head dims (8 to 320) and lengths (1 to 1024), masks and rates,
+with the keep-mask's bits read back from both; the
 LayerNorm forward (CUDA C++, both its routes) and backward (Triton) over
 widths, row counts and dtypes; the ``autograd.Function``s against PyTorch's autograd through the
 plain forwards; the wrappers' launch counts and refusals; the BERT
@@ -24,7 +26,9 @@ machine need not have; these tests import only PyTorch and the port.)
 
 Tolerances as in ``chip_smoke.py``: attention o rtol 1e-4 / atol 1e-5 in
 f32 and 2e-2 / 2e-2 in bf16, m and l rtol 1e-4 (m with atol 1e-5 on the
-tensor-core kernels, which add a score's products in another order);
+tensor-core kernels, which add a score's products in another order; on
+the grid m with atol 1e-5 on either route, whose sums over d run in
+another order than the plain version's GEMM); keep bits equal;
 attention gradients
 rtol 1e-3 / atol 1e-4 in f32 and 2e-2 / 2e-2 in bf16; LayerNorm y rtol =
 atol = 1e-5, mean and rstd rtol 1e-5, dx rtol = atol = 1e-4 (f32),
@@ -84,7 +88,7 @@ def test_attention_kernel_matches_plain(gen, B, T, with_mask, dtype):
     got = attention.attention_fwd(q, k, v, mask, nh)
     torch.cuda.synchronize()
     assert attention.launches == 1
-    assert attention.mma_launches == (dtype == torch.bfloat16 and T <= 128)
+    assert attention.mma_launches == (dtype == torch.bfloat16)
     want = attention.attention_reference(q, k, v, mask, nh)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
@@ -92,14 +96,17 @@ def test_attention_kernel_matches_plain(gen, B, T, with_mask, dtype):
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
 
 
+# shapes outside the JAX fused path's domain (head dims 32, 96 and T > 512
+# were refused here until the kernels took every shape of that domain)
 @pytest.mark.parametrize(
     "shape,nh,dtype,mask_dtype",
-    [((2, 16, 384), 12, torch.float32, torch.int32),   # head dim 32
-     ((2, 520, 768), 12, torch.float32, torch.int32),  # T > 512
+    [((2, 16, 80), 4, torch.float32, torch.int32),     # head dim 20
+     ((2, 520, 16), 4, torch.bfloat16, torch.int32),   # head dim 4
      ((2, 0, 768), 12, torch.float32, torch.int32),    # T == 0
-     ((2, 16, 768), 8, torch.float32, torch.int32),    # head dim 96
+     ((2, 16, 768), 7, torch.float32, torch.int32),    # 768 not a multiple of 7 heads
      ((2, 16, 768), 12, torch.float16, torch.int32),   # dtype
-     ((2, 16, 768), 12, torch.float32, torch.int64)],  # mask dtype
+     ((2, 16, 768), 12, torch.float32, torch.int64),   # mask dtype
+     ((65536, 1, 8), 1, torch.bfloat16, torch.int32)],  # B past the grid's 65535
 )
 def test_attention_wrapper_refuses(gen, shape, nh, dtype, mask_dtype):
     q = torch.zeros(shape, dtype=dtype, device="cuda")
@@ -167,7 +174,7 @@ def test_attention_backward_matches_plain(gen, B, T, with_mask, rate, dtype):
     got = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, 99)
     torch.cuda.synchronize()
     assert attention.bwd_launches == 1
-    assert attention.mma_bwd_launches == (dtype == torch.bfloat16 and T <= 128)
+    assert attention.mma_bwd_launches == (dtype == torch.bfloat16)
     want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, 99)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype, name
@@ -221,22 +228,98 @@ def test_attention_kernels_repeat_bit_for_bit(gen, T, dtype):
 
 
 def test_attention_route_is_a_rule_on_dtype_and_length(gen):
-    """bf16 at T <= 128 goes to the tensor-core kernels, anything else to
-    the FMA kernels; an unaligned view on the tensor-core route raises."""
-    H, nh = 768, 12
-    for dtype, T, mma in ((torch.bfloat16, 128, 1), (torch.bfloat16, 129, 0), (torch.bfloat16, 1, 1),
-                          (torch.float32, 128, 0), (torch.float32, 8, 0)):
+    """bf16 with a head dim up to 256 goes to the tensor-core kernels at
+    any length (up to T = 128 at head dim 64 the whole-head kernels, else
+    the tiled ones), anything else to the FMA kernels; an unaligned view
+    on the tensor-core route raises."""
+    for dtype, T, H, nh, mma in (
+        (torch.bfloat16, 128, 768, 12, 1), (torch.bfloat16, 129, 768, 12, 1), (torch.bfloat16, 1, 768, 12, 1),
+        (torch.float32, 128, 768, 12, 0), (torch.float32, 8, 768, 12, 0),
+        (torch.bfloat16, 600, 768, 3, 1), (torch.bfloat16, 40, 640, 2, 0), (torch.float32, 600, 768, 24, 0),
+    ):
         q = torch.randn((2, T, H), generator=gen, device="cuda").to(dtype)
         attention.launches = attention.mma_launches = 0
         attention.bwd_launches = attention.mma_bwd_launches = 0
         _, m, l = attention.attention_fwd(q, q, q, None, nh)
         attention.attention_bwd(q, q, q, q, None, m, l, nh)
         assert (attention.launches, attention.bwd_launches) == (1, 1)
-        assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma), (dtype, T)
+        assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma), (dtype, T, H, nh)
+    H, nh = 768, 12
     flat = torch.zeros(2 * 16 * H + 1, dtype=torch.bfloat16, device="cuda")
     odd = flat[1:].view(2, 16, H)  # contiguous, 2 bytes off a 16-byte boundary
     with pytest.raises(ValueError, match="aligned"):
         attention.attention_fwd(odd, odd, odd, None, nh)
+
+
+GRID_DIMS = (8, 16, 40, 64, 128, 256, 320)
+GRID_LENGTHS = (1, 77, 128, 136, 256, 512, 1024)
+
+
+def _grid_mask(kind, B, T):
+    """None, ragged rows (row 0 full), or ragged rows with the last row
+    fully masked."""
+    if kind is None:
+        return None
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    for b in range(1, B):
+        mask[b, max(1, T - (b * T) // (B + 1)):] = 0
+    if kind == "fully_masked_row":
+        mask[-1] = 0
+    return mask
+
+
+def keep_bits_read_back(B, nh, T, d, dtype, rate, seed):
+    """The keep-mask bits as the kernels drew them: with q = k = 0 every p
+    is 1; v's key j < d a one-hot in head dim j makes o[i, j] the kept
+    p of (query i, key j) over l, and dO's query i < d a one-hot makes
+    dv[j, i] that of (query i, key j). Returns (forward bits for keys
+    < min(T, d), backward bits for queries < min(T, d)), [row, head,
+    query, key]."""
+    n = min(T, d)
+    zeros = torch.zeros((B, T, nh * d), dtype=dtype, device="cuda")
+    eye = torch.zeros((B, T, nh, d), dtype=dtype, device="cuda")
+    eye[:, torch.arange(n), :, torch.arange(n)] = 1
+    eye = eye.reshape(B, T, nh * d)
+    o, m, l = attention.attention_fwd(zeros, zeros, eye, None, nh, rate, seed)
+    _, _, dv = attention.attention_bwd(zeros, zeros, eye, eye, None, m, l, nh, rate, seed)
+    fwd = o.reshape(B, T, nh, d)[..., :n].permute(0, 2, 1, 3) > 0
+    bwd = dv.reshape(B, T, nh, d)[..., :n].permute(0, 2, 3, 1) > 0
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("T", GRID_LENGTHS)
+@pytest.mark.parametrize("d", GRID_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_pair_over_head_dims_and_lengths(gen, dtype, d, T):
+    """Every shape of the grid launches the kernel its route names, never
+    raises, and agrees with the plain versions under no mask, ragged
+    rows and a fully masked row, at rate 0 and 0.1; the keep bits read
+    back from both kernels equal the plain version's."""
+    B, nh = 3, 2
+    route = attention.kernel_route(dtype, d)
+    q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    for kind in (None, "ragged", "fully_masked_row"):
+        mask = _grid_mask(kind, B, T)
+        for rate in (0.0, 0.1):
+            attention.launches = attention.mma_launches = attention.bwd_launches = attention.mma_bwd_launches = 0
+            o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, 21)
+            grads = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, 21)
+            torch.cuda.synchronize()
+            mma = int(route == "mma")
+            assert (attention.launches, attention.bwd_launches) == (1, 1)
+            assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma)
+            ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, 21)
+            where = f"{dtype} d {d} T {T} mask {kind} rate {rate}"
+            torch.testing.assert_close(o.float(), ro.float(), msg=f"o {where}", **OUT_TOL[dtype])
+            torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-5, msg=f"m {where}")
+            torch.testing.assert_close(l, rl, rtol=1e-4, atol=0, msg=f"l {where}")
+            want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, 21)
+            for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+                torch.testing.assert_close(g.float(), w.float(), msg=f"{name} {where}", **GRAD_TOL[dtype])
+    fwd, bwd = keep_bits_read_back(B, nh, T, d, dtype, 0.1, 21)
+    keep = attention.keep_mask(B, nh, T, 21, 0.1, "cuda")
+    n = min(T, d)
+    assert torch.equal(fwd, keep[..., :n]) and torch.equal(bwd, keep[..., :n, :])
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -337,11 +420,12 @@ def test_layernorm_wrapper_refuses(gen):
 
 
 # T = 77 is off the JAX fused path's shapes (T % 8), but on the card
-# fused_attention still launches the kernel, once per layer
-@pytest.mark.parametrize("T", [128, 77])
+# fused_attention still launches the kernel, once per layer; 8 heads of
+# 32 and T = 320 take the tiled tensor-core kernels in bf16
+@pytest.mark.parametrize("T,heads", [(128, 12), (77, 12), (320, 12), (128, 24)])
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-def test_bert_encoder_kernels_on_vs_off(gen, dtype, T):
-    cfg = bert.BertConfig(vocab_size=512, num_layers=2)
+def test_bert_encoder_kernels_on_vs_off(gen, dtype, T, heads):
+    cfg = bert.BertConfig(vocab_size=512, num_layers=2, num_heads=heads)
     off = bert.BertEncoder(cfg, dtype=dtype, device="cuda", generator=gen).eval()
     on = bert.BertEncoder(dataclasses.replace(cfg, fused_attention=True, fused_ln=True),
                           dtype=dtype, device="cuda")
