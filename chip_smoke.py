@@ -267,25 +267,31 @@ non-zero exit and no result line:
    head dims 8, 16, 40, 64, 128, 256, 320 x T = 1, 77, 128, 136, 256,
    512, 1024 x no mask, ragged rows, a fully masked row x rate 0 and 0.1
    (B 3, 2 heads), each case through the wrappers against the plain
-   versions at phase 2's limits (m at atol 1e-5 on both routes), each on
-   the route ``kernel_route`` names (its counters read: bf16 up to head
-   dim 256 on the tensor cores at every T, f32 and bf16 at 320 on the FMA
-   kernels); the keep-mask bits read back from both kernels (q = k = 0,
-   one-hot v and dO) equal the plain version's; a planted fault (the
-   scale left at 1/8 at head dim 32). (b) Times of the pair at (256, 256,
-   768) and (256, 512, 768) (the tiled kernels), (256, 128, 768) (the
-   whole-head kernels, beside PERF.md's device times) and at (256, 128,
-   768) with 24 heads of 32 and 6 of 128: CUDA events in turns with the
-   plain versions, profiler device time, rate 0.1 and 0, SDPA and its
-   backward at rate 0, the bound. (c) The full-width stage-1 step
-   (bf16, ``--fused_attn`` with 16-bit masks, ``--fused_ln``, text
+   versions at phase 2's limits (m at atol 1e-5 on every route), each on
+   the route ``kernel_route`` names, its counters read: bf16 with head dim
+   32, 64 or 128 on the Hopper kernels (wgmma on TMA-fed tiles) at every
+   T but the whole-head kernels' d = 64, T <= 128, the other bf16 head
+   dims up to 256 on the mma.sync kernels, f32 and bf16 at 320 on the FMA
+   kernels; the keep-mask bits read back from both kernels (q = k = 0,
+   one-hot v and dO) equal the plain version's, on the route of the case;
+   on the Hopper route two backward runs give equal bits; two planted
+   faults on the Hopper route (the scale left at 1/8 at head dim 32; the
+   keep-mask hash read at the query one row on). (b) Times of the pair at
+   (256, 256, 768) and (256, 512, 768), at (256, 128, 768) with 24 heads
+   of 32 and 6 of 128 (the Hopper kernels, each beside the mma.sync tiled
+   kernels at the same shape through the C entry points' route argument),
+   with 16 heads of 48 (the mma.sync tiled kernels) and with 12 heads
+   (the whole-head kernels, beside PERF.md's device times): CUDA events in
+   turns with the plain versions, profiler device time, rate 0.1 and 0,
+   SDPA and its backward at rate 0, the bound. (c) The full-width stage-1
+   step (bf16, ``--fused_attn`` with 16-bit masks, ``--fused_ln``, text
    dropout on) at seq_len 256 and 512: one step at batch 32 (12 + 12
-   attention launches, all on the tensor cores, 25 + 25 LayerNorm), then
+   attention launches, all on the Hopper kernels, 25 + 25 LayerNorm), then
    at batch 128 with remat (halved while it does not fit) kernels on and
    off in turns; at 512 phase 6's kernels-on-vs-off check at batch 32;
-   one step each with 24 heads of 32 and 6 of 128 at seq_len 128 for
-   their launches. (d) The tiny stage-1 step (``BertConfig.tiny``: head
-   dim 8) with fused attention and text dropout on, f32, on the card
+   one step each with 24 heads of 32, 6 of 128 and 16 of 48 at seq_len
+   128 for their launches. (d) The tiny stage-1 step (``BertConfig.tiny``:
+   head dim 8) with fused attention and text dropout on, f32, on the card
    (FMA kernels, off cuDNN) against the same step on the CPU, masks and
    seeds replayed, at phase 8 (c)'s limits.
 
@@ -295,8 +301,9 @@ could take and, where one PyTorch call computes the same function, that
 call's; the v2 kernels also with their launches at 256 px and on one
 RN50 step, the v1 training kernels with one rank's launches in a step of
 phase 11's grid, the attention pair's rows at that rank's width 384, and
-phase 14's rows at seq_len 256 and 512, at head dims 32 and 128 and at
-the whole-head shape, each with the launches of one step of that
+phase 14's rows: the Hopper kernels at seq_len 256 and 512 and at head
+dims 32 and 128, the mma.sync tiled kernels at head dim 48, the
+whole-head kernels, each with the launches of one step of that
 configuration), the card's line from nvidia-smi, and last ``{"ok": true,
 "device": {...}}``.
 """
@@ -821,6 +828,7 @@ def phase_main_path(tmp: Path, attention, layernorm):
 def reset_counts(attention, layernorm) -> None:
     attention.launches = attention.dropout_launches = attention.bwd_launches = 0
     attention.mma_launches = attention.mma_bwd_launches = 0
+    attention.wgmma_launches = attention.wgmma_bwd_launches = 0
     layernorm.launches = layernorm.bwd_launches = 0
 
 
@@ -831,6 +839,12 @@ def read_counts(attention, layernorm) -> dict:
         "attention_bwd": attention.bwd_launches, "attention_bwd_mma": attention.mma_bwd_launches,
         "layernorm": layernorm.launches, "layernorm_bwd": layernorm.bwd_launches,
     }
+
+
+def read_wgmma(attention) -> dict:
+    """The Hopper attention kernels' launches (a part of the tensor-core
+    counts of ``read_counts``)."""
+    return {"attention_wgmma": attention.wgmma_launches, "attention_bwd_wgmma": attention.wgmma_bwd_launches}
 
 
 def path_inputs(gen):
@@ -4681,7 +4695,16 @@ SHAPES_B, SHAPES_HEADS = 3, 2
 # seq_len 256 and 512, at 128 (the whole-head kernels) and at 128 with
 # head dims 32 and 128
 SHAPES_TIMED = {"t256": (256, 256, 768, 12), "t512": (256, 512, 768, 12), "t128": TRAIN_ATTN,
-                "d32": (256, 128, 768, 24), "d128": (256, 128, 768, 6)}
+                "d32": (256, 128, 768, 24), "d128": (256, 128, 768, 6), "d48": (256, 128, 768, 16)}
+# the step configurations of phase 14 (c) at seq_len 128 beside the
+# default 12 heads: heads -> head dim (32 and 128 on the Hopper kernels, 48
+# on the mma.sync tiled ones)
+SHAPES_STEP_HEADS = {24: "d32", 6: "d128", 16: "d48"}
+# the planted fault of the Hopper route: the keep-mask hash read at the
+# query one row on. The hash is h(r * 0x9E3779B9 + c * 0x85EBCA6B + salt *
+# 0xC2B2AE35), so a seed this much higher gives every (r, c) the bits of
+# (r + 1, c).
+ROW_SHIFT_SEED = (0x9E3779B9 * pow(0xC2B2AE35, -1, 2**32)) % 2**32
 # the full-width stage-1 step at these lengths, batch 128 with remat (the
 # text forward's activations at T = 512 do not fit the card without it);
 # kernels on vs off at batch 32, where phase 6's check (its text forward
@@ -4764,10 +4787,14 @@ def phase_shapes_grid(attention, layernorm, gen):
     cases = 0
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for d in SHAPES_DIMS:
-            route = attention.kernel_route(dtype, d)
+            routes = {}
             worst = [0.0, 0.0]
             for T in SHAPES_LENGTHS:
                 B, nh = SHAPES_B, SHAPES_HEADS
+                route = attention.kernel_route(dtype, d, T)
+                routes.setdefault(route, []).append(T)
+                want = {"attention_mma": int(route != "fma"), "attention_bwd_mma": int(route != "fma"),
+                        "attention_wgmma": int(route == "wgmma"), "attention_bwd_wgmma": int(route == "wgmma")}
                 q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").to(dtype)
                                for _ in range(4))
                 for kind in SHAPES_MASKS:
@@ -4776,26 +4803,40 @@ def phase_shapes_grid(attention, layernorm, gen):
                         reset_counts(attention, layernorm)
                         errs = check_shape_case(attention, dtype, tag, q, k, v, do, mask, nh, rate, SEED + 14,
                                                 f"attention {tag} d {d} T {T} mask {kind} rate {rate}")
-                        counts = read_counts(attention, layernorm)
-                        mma = int(route == "mma")
+                        counts = {**read_counts(attention, layernorm), **read_wgmma(attention)}
                         if (counts["attention"], counts["attention_bwd"]) != (1, 1) or \
-                                (counts["attention_mma"], counts["attention_bwd_mma"]) != (mma, mma):
+                                any(counts[key] != n for key, n in want.items()):
                             raise AssertionError(f"attention {tag} d {d} T {T}: launches {counts}, "
                                                  f"route {route}")
                         worst = [max(a, b) for a, b in zip(worst, errs)]
                         cases += 1
+                reset_counts(attention, layernorm)
                 fwd, bwd = keep_bits_read_back(attention, B, nh, T, d, dtype, 0.1, SEED + 15)
+                if (attention.wgmma_launches, attention.wgmma_bwd_launches) != (want["attention_wgmma"],) * 2:
+                    raise AssertionError(f"attention {tag} d {d} T {T}: the keep bits were read back off "
+                                         f"the {route} route")
                 keep = attention.keep_mask(B, nh, T, SEED + 15, 0.1, "cuda")
                 n = min(T, d)
                 if not (torch.equal(fwd, keep[..., :n]) and torch.equal(bwd, keep[..., :n, :])):
                     raise AssertionError(f"attention {tag} d {d} T {T}: the kernels' keep bits differ "
                                          f"from the plain version's")
-            log(f"  {tag} d {d}: {route} route over every T, mask and rate: max abs o {worst[0]:.3e}, "
-                f"dq/dk/dv {worst[1]:.3e}; keep bits equal forward and backward ok")
+                if route == "wgmma":  # no atomics: the backward twice, the same bits
+                    mask = shapes_mask("ragged", B, T)
+                    _, m, l = attention.attention_fwd(q, k, v, mask, nh, 0.1, SEED + 16)
+                    first = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, SEED + 16)
+                    again = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, SEED + 16)
+                    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                        raise AssertionError(f"attention {tag} d {d} T {T}: two backward runs differ")
+            where = "; ".join(f"{r} at T {ts}" for r, ts in routes.items())
+            log(f"  {tag} d {d}: {where}: max abs o {worst[0]:.3e}, dq/dk/dv {worst[1]:.3e}; keep bits "
+                f"equal forward and backward{', two backward runs bit-equal' if 'wgmma' in routes else ''} ok")
     log(f"  {cases} cases, each on its route, {time.perf_counter() - t0:.1f} s")
 
-    # planted: the scale left at 1 / sqrt(64) = 1/8 whatever the head dim
+    # planted: the scale left at 1 / sqrt(64) = 1/8 whatever the head dim;
+    # the keep-mask hash read at the query one row on (both on the Hopper
+    # route at this shape)
     B, T, d, nh = SHAPES_B, 136, 32, SHAPES_HEADS
+    assert attention.kernel_route(torch.bfloat16, d, T) == "wgmma"
     q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").bfloat16() for _ in range(4))
     mask = shapes_mask("ragged", B, T)
     right = attention._scale
@@ -4806,28 +4847,43 @@ def phase_shapes_grid(attention, layernorm, gen):
                                             SEED + 14, f"attention bf16 d {d} T {T}, scale 1/8"))
     finally:
         attention._scale = right
+    right = attention._dropout_args
+    attention._dropout_args = lambda rate, seed: right(rate, seed + ROW_SHIFT_SEED)
+    try:
+        must_catch("Hopper kernels whose keep-mask hash reads the query one row on",
+                   lambda: check_shape_case(attention, torch.bfloat16, "bf16", q, k, v, do, mask, nh, 0.1,
+                                            SEED + 14, f"attention bf16 d {d} T {T}, hash row + 1"))
+    finally:
+        attention._dropout_args = right
 
 
 def shapes_times(attention, name, shape, gen, card) -> dict:
     """Phase 14 (b): the pair at ``shape`` (bf16, the phase-2 mask): the
     wrappers by CUDA events back to back in turns with the plain versions
     (kernel, plain, kernel) and by profiler device time, at rate 0.1 and
-    0; SDPA and its autograd backward at rate 0 (used nowhere in the
-    port); the bound; the max abs error against the plain version."""
+    0; where the wrappers take the Hopper kernels, the mma.sync tiled
+    kernels at the same shape through the C entry points' route argument
+    (device time, after the Hopper kernels' second turn); SDPA and its
+    autograd backward at rate 0 (used nowhere in the port); the bound; the
+    max abs error against the plain version."""
     import torch
     import torch.nn.functional as F
 
     B, T, H, nh = shape
     q, k, v, mask = attention_inputs(B, T, H, torch.bfloat16, gen)
     do = torch.randn((B, T, H), generator=gen, device="cuda").bfloat16()
+    route = attention.kernel_route(torch.bfloat16, H // nh, T)
     out = {}
     for rate in (0.1, 0.0):
         _, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, SEED)
+        drop = attention._dropout_args(rate, SEED)
         fns = {"fwd": (lambda: attention.attention_fwd(q, k, v, mask, nh, rate, SEED),
-                       lambda: attention.attention_reference(q, k, v, mask, nh, rate, SEED)),
+                       lambda: attention.attention_reference(q, k, v, mask, nh, rate, SEED),
+                       lambda: attention._launch_fwd(q, k, v, mask, nh, drop, "mma")),
                "bwd": (lambda: attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, SEED),
-                       lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, SEED))}
-        for which, (kernel, plain) in fns.items():
+                       lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, rate, SEED),
+                       lambda: attention._launch_bwd(q, k, v, do, mask, m, l, nh, drop, "mma"))}
+        for which, (kernel, plain, tiled) in fns.items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -4837,12 +4893,15 @@ def shapes_times(attention, name, shape, gen, card) -> dict:
             turns.append(cuda_ms(kernel, warmup=1, runs=3, inner=5))
             t = {"ms": statistics.mean(turns), "device_ms": device_ms(kernel, calls=5), "plain_ms": plain_ms,
                  "max_abs_err": err, **attention_bound(shape, 2, which == "bwd")}
+            if route == "wgmma":
+                t["tiled_device_ms"] = device_ms(tiled, calls=5)
             out[which, rate] = t
-            log(f"  attention {which} bf16 {shape[:3]} {nh} heads (d {H // nh}) rate {rate}: kernel "
-                f"{t['ms']:.4f} ms back to back (turns {turns[0]:.4f}, {turns[1]:.4f}), device "
+            log(f"  attention {which} bf16 {shape[:3]} {nh} heads (d {H // nh}) rate {rate}, {route} route: "
+                f"kernel {t['ms']:.4f} ms back to back (turns {turns[0]:.4f}, {turns[1]:.4f}), device "
                 f"{t['device_ms']:.4f} ms; plain {plain_ms:.4f} ms; bound {t['bound_ms']:.5f} ms by "
                 f"{t['bound_by']}, device / bound {t['device_ms'] / t['bound_ms']:.2f}; max abs err "
-                f"{err:.3e} [{card}]")
+                f"{err:.3e}" + (f"; the mma.sync tiled kernels at this shape: device {t['tiled_device_ms']:.4f} ms"
+                                if "tiled_device_ms" in t else "") + f" [{card}]")
     (qh, kh, vh), keep = sdpa_inputs(q, k, v, mask, nh)
     sdpa = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), inner=5)}
     leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
@@ -4856,6 +4915,9 @@ def shapes_times(attention, name, shape, gen, card) -> dict:
                        "device_ms": t["device_ms"], "max_abs_err": t["max_abs_err"], "ms_rate0": t0["ms"],
                        "device_ms_rate0": t0["device_ms"], "plain_ms_rate0": t0["plain_ms"],
                        "library_ms": sdpa[which]}
+        if route == "wgmma":
+            rows[which].update(mma_tiled_device_ms=t["tiled_device_ms"],
+                               mma_tiled_device_ms_rate0=t0["tiled_device_ms"])
         log(f"  {name} {which} at rate 0: kernel {t0['ms']:.4f} ms (device {t0['device_ms']:.4f}), "
             f"{'F.scaled_dot_product_attention' if which == 'fwd' else 'its autograd backward'} "
             f"{sdpa[which]:.4f} ms [{card}]")
@@ -4875,7 +4937,9 @@ def shapes_step_config(T, heads, fused, text_dropout=True, remat=False):
 def shapes_step_launches(attention, layernorm, cfg, gen, batch) -> tuple:
     """One stage-1 step of ``cfg`` from a seeded init: its launch counts,
     which must be 12 + 12 attention on the tensor-core kernels and 25 + 25
-    LayerNorm, with finite metrics."""
+    LayerNorm, with finite metrics, and of those attention launches 12 +
+    12 on the Hopper kernels where ``kernel_route`` names them for the
+    step's shape, else none."""
     import torch
 
     from imagegenerator_tpu_torch.train.stage1 import Stage1System
@@ -4889,9 +4953,15 @@ def shapes_step_launches(attention, layernorm, cfg, gen, batch) -> tuple:
     if counts != WITH_BACKWARD:
         raise AssertionError(f"stage-1 step T {cfg.seq_len}, {cfg.bert.num_heads} heads: launches {counts}, "
                              f"expected {WITH_BACKWARD}")
+    hopper = attention.kernel_route(torch.bfloat16, cfg.bert.hidden_size // cfg.bert.num_heads,
+                                    cfg.seq_len) == "wgmma"
+    wgmma = read_wgmma(attention)
+    if wgmma != {"attention_wgmma": 12 * hopper, "attention_bwd_wgmma": 12 * hopper}:
+        raise AssertionError(f"stage-1 step T {cfg.seq_len}, {cfg.bert.num_heads} heads: Hopper launches "
+                             f"{wgmma}, expected {12 * hopper} each")
     if not all(map(torch.isfinite, metrics.values())):
         raise AssertionError(f"stage-1 step T {cfg.seq_len}: metrics not finite")
-    return system, data, counts
+    return system, data, {**counts, **wgmma}
 
 
 def phase_shapes_steps(attention, layernorm, gen, card) -> dict:
@@ -4902,8 +4972,9 @@ def phase_shapes_steps(attention, layernorm, gen, card) -> dict:
     fits, with a log line) the step with the kernels and with the plain
     attention and LayerNorm, in turns; at 512 phase 6's kernels-on-vs-off
     check at batch 32. Then one step each with 24 heads of 32 and 6 heads
-    of 128 at seq_len 128 (batch 32), for their launches. Returns each
-    run's launch counts."""
+    of 128 (the Hopper kernels) and 16 heads of 48 (the mma.sync tiled
+    kernels) at seq_len 128 (batch 32), for their launches. Returns each
+    run's launch counts, the Hopper kernels' among them."""
     import torch
 
     launches = {}
@@ -4929,12 +5000,12 @@ def phase_shapes_steps(attention, layernorm, gen, card) -> dict:
         torch.cuda.empty_cache()
         if T == max(SHAPES_STEP_LENGTHS):
             shapes_on_off(gen, T)
-    for heads in (24, 6):
+    for heads, key in SHAPES_STEP_HEADS.items():
         d = 768 // heads
         log(f"phase 14 (c): one stage-1 step with {heads} heads of {d}, seq_len 128, batch {SHAPES_CHECK_BATCH}")
         system, _, counts = shapes_step_launches(attention, layernorm, shapes_step_config(128, heads, True), gen,
                                                  SHAPES_CHECK_BATCH)
-        launches[f"d{d}"] = counts
+        launches[key] = counts
         log(f"  launches in one step: {counts}")
         del system
         torch.cuda.empty_cache()
@@ -5233,15 +5304,22 @@ def main() -> int:
          "launches": tp_launches["attention_bwd"], **tp_t["bwd"]},
     ]
     # phase 14: the pair at the stage-1 step's shapes at seq_len 256 and 512
-    # (the tiled tensor-core kernels) and at head dims 32 and 128; launches
-    # from one step of that configuration (attention_*_t128: the whole-head
-    # kernels timed again in phase 14, beside the new rows)
-    for key, what in (("t256", "seq_len 256"), ("t512", "seq_len 512"), ("d32", "24 heads of 32"),
-                      ("d128", "6 heads of 128"), ("t128", "seq_len 128, the whole-head kernels")):
+    # and at head dims 32 and 128 (the Hopper kernels, each row with the
+    # mma.sync tiled kernels' device time at its shape), at head dim 48
+    # (the mma.sync tiled kernels) and at the whole-head shape (t128: the
+    # whole-head kernels timed again beside the new rows); launches from
+    # one step of that configuration, those of the row's own kernels
+    for key, what, kind in (("t256", "seq_len 256", "wgmma"), ("t512", "seq_len 512", "wgmma"),
+                            ("d32", "24 heads of 32", "wgmma"), ("d128", "6 heads of 128", "wgmma"),
+                            ("d48", "16 heads of 48", "tiled"), ("t128", "seq_len 128", "whole_head")):
         counted = shape_launches.get(key, train_launches)
-        for which, replaces, count in (("fwd_dropout", 277, "attention_dropout"), ("bwd", 308, "attention_bwd")):
+        for which, replaces in (("fwd_dropout", 277), ("bwd", 308)):
             row = shape_rows[key]["fwd" if which == "fwd_dropout" else "bwd"]
-            kernels.append({"name": f"attention_{which}_{key}", "route": "cuda",
+            count = "attention_dropout" if which == "fwd_dropout" else "attention_bwd"
+            if kind == "wgmma":
+                count = "attention_wgmma" if which == "fwd_dropout" else "attention_bwd_wgmma"
+            name = f"attention_{which}_{key}" if kind == "whole_head" else f"attention_{which}_{kind}_{key}"
+            kernels.append({"name": name, "route": "cuda",
                             "source": f"imagegenerator_tpu_torch/csrc/attention_{which[:3]}.cu",
                             "replaces": f"imagegenerator_tpu/ops/pallas/attention.py:{replaces}",
                             "launches": counted[count], "launches_on": what, **row})

@@ -360,6 +360,8 @@ _COUNTERS = (
     ("attention_fwd_mma", "attention", "mma_launches"),
     ("attention_bwd", "attention", "bwd_launches"),
     ("attention_bwd_mma", "attention", "mma_bwd_launches"),
+    ("attention_fwd_wgmma", "attention", "wgmma_launches"),
+    ("attention_bwd_wgmma", "attention", "wgmma_bwd_launches"),
     ("layernorm_fwd", "layernorm", "launches"),
     ("layernorm_bwd", "layernorm", "bwd_launches"),
     ("vq_argmin", "vq_argmin", "launches"),

@@ -21,7 +21,7 @@
 // (T, T) tensor reaches device memory, and no sum is made with atomics:
 // two runs give the same bits.
 //
-// Three kernels, chosen as in attention_fwd.cu:
+// Four kernels, chosen as in attention_fwd.cu:
 //
 // 1. Tensor cores, whole head: bf16, d = 64, T <= 128
 //    (attention_bwd_mma_kernel). One launch,
@@ -50,7 +50,29 @@
 //    keys split between them) and a persistent block that loads the next
 //    head while it works on this one were both tried and were no faster.
 //
-// 2. Tensor cores, tiled: bf16, any other T, 8 <= d <= 256. No block can
+// 2. Tensor cores, Hopper: bf16, d = 32, 64 or 128 outside kernel 1's
+//    domain (attention_bwd_{dq,dkdv}_wgmma_kernel, the "wgmma" route;
+//    machinery in attention_sm90.cuh). The same two launches and the same
+//    arithmetic as kernel 3, persistent (one block a SM over units of 128
+//    queries, then of 128 keys), each block a producer warp feeding TMA
+//    tiles through a ring of mbarriers and two consumer warpgroups running
+//    wgmma: launch a forms S = Q K^T and dP = dO V^T from shared memory,
+//    writes D = rowsum(dp * probs) in pass 1 and adds dQ += ds K (ds from
+//    registers, K read MN-major) in pass 2; launch b forms S^T = K Q^T and
+//    dP^T = V dO^T and adds dV += pd^T dO and dK += ds^T Q (pd^T and ds^T
+//    from registers, dO and Q read MN-major), the query statistics (m, l,
+//    D) read a tile ahead by the producer. No atomics: two runs give the
+//    same bits. What bounds it: its load pipeline (K and V twice a query
+//    tile in launch a, Q and dO once a key tile in launch b), then the exp
+//    and the keep-mask hash, which the two warpgroups take in turns with
+//    their score products. At (256, 512,
+//    768) it is slower than F.scaled_dot_product_attention's backward
+//    (PERF.md). A flash-style backward takes D from dO . O and sums dQ
+//    with atomics in one pass over the keys; the JAX kernel's D (from dp
+//    and the probabilities) needs a pass of its own, and the bits must
+//    repeat, so dQ stays in one block.
+//
+// 3. Tensor cores, tiled: bf16, 8 <= d <= 256 off kernel 2's head dims. No block can
 //    hold a head past T = 128, and D needs a whole row of keys before any
 //    ds of that row exists, so two launches, 4 warps a block, every tile
 //    through a two-stage cp.async ring, the contraction over d zero-padded
@@ -77,7 +99,7 @@
 //    before it with 16 rows a warp: at (256, 512, 768) the pair runs at
 //    about 15% of the bf16 peak (PERF.md).
 //
-// 3. FMA units: f32 inputs, or bf16 with d > 256. The same two launches on
+// 4. FMA units: f32 inputs, or bf16 with d > 256. The same two launches on
 //    64 x 64 f32 pieces in shared memory (odd row stride 65), one
 //    shared-memory load per FMA, any T and any d: a. dq, pass 1 for D and
 //    pass 2 for dQ per 64-wide piece of the head dims; b. dk, dv per 64-key
@@ -86,6 +108,7 @@
 
 #include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -623,6 +646,556 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+// -------------------------------- tensor cores, Hopper: d = 32, 64, 128
+
+namespace hop {
+
+constexpr int kConsumers = 2;                      // warpgroups of 64 rows
+constexpr int kRows = 64 * kConsumers;             // queries (launch a) or keys (launch b) of a unit
+constexpr int kThreads = 128 * (kConsumers + 1);  // and a producer warpgroup
+
+// Launch a walks key tiles of 64 (S and dP are then 32 registers each).
+// (Two slabs of 64 queries a warpgroup, so that each K and V tile served
+// twice the queries, were no faster with dropout on; nor was keeping a
+// head's K and V in the ring from pass 1 to pass 2.) Launch b walks query tiles of 64, 32 at d = 128, where the dK and dV
+// accumulators take 128 registers a thread. Tiles in flight: as many as
+// shared memory holds beside two units' resident tiles, up to 6.
+constexpr int kDqKeys = 64;
+template <int kD>
+constexpr int dkdv_queries() { return kD >= 128 ? 32 : 64; }
+template <int kD>
+constexpr int kDqStages = kD >= 128 ? 3 : 6;
+template <int kD>
+constexpr int kDkdvStages = kD >= 128 ? 4 : 6;
+
+// Launch a's shared memory from a 1024-byte boundary: two slots of the Q
+// and dO tiles (this unit's and the next one's), the K and V tiles of
+// each stage, each stage's column bits, the barriers (the slots' full and
+// empty, the stages' full and empty).
+template <int kD, int kN = kDqKeys, int kStages = kDqStages<kD>>
+struct DqSmem {
+  static constexpr int kSlot = 2 * kRows * kD * 2;  // Q, then dO
+  static constexpr int kK = 2 * kSlot;
+  static constexpr int kV = kK + kStages * kN * kD * 2;
+  static constexpr int kBits = kV + kStages * kN * kD * 2;
+  static constexpr int kBar = kBits + kStages * 4 * 8;
+  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;
+};
+
+// Launch b's: two slots of the K and V tiles, the Q and dO tiles of each
+// stage, each stage's query statistics (m log2 e, (-3e7 - m) log2 e,
+// 1 / l, D), the barriers.
+template <int kD, int kQ, int kStages = kDkdvStages<kD>>
+struct DkdvSmem {
+  static constexpr int kSlot = 2 * kRows * kD * 2;  // K, then V
+  static constexpr int kQt = 2 * kSlot;
+  static constexpr int kDo = kQt + kStages * kQ * kD * 2;
+  static constexpr int kStat = kDo + kStages * kQ * kD * 2;
+  static constexpr int kBar = kStat + kStages * 4 * kQ * 4;
+  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;
+};
+
+template <int kStages>
+__device__ __forceinline__ void advance(int& stage, unsigned& phase) {
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+}  // namespace hop
+
+// Launch a, persistent: one block a SM walks the units (batch row, head,
+// 128-query tile); warpgroups 0 and 1 consume, 64 queries each, one warp
+// of warpgroup 2 produces (setmaxnreg hands its registers over). The
+// producer loads each unit's Q and dO tiles by TMA into one of two slots,
+// then the K and V tiles of every key tile twice through a ring of full /
+// empty mbarriers, each with its keys' column bits (the mask read one
+// tile ahead). A warpgroup computes S = Q K^T and dP = dO V^T by wgmma
+// from shared memory (d / 16 m64n64k16 each) and the exp, in its turn
+// (named barriers) with the other warpgroup; pass 1 forms the probabilities from the saved (m, l)
+// (tile_exp), the keep-mask on dp and D = rowsum(dp * probs), written for
+// launch b; pass 2 forms ds, rounds it to bf16 as register A fragments
+// and adds dQ += ds K by wgmma with K read MN-major. dQ is summed in one
+// block in a fixed order.
+template <int kD>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                              const int* __restrict__ mask, const float* __restrict__ m_in,
+                              const float* __restrict__ l_in, mma::bf16* __restrict__ dq,
+                              float* __restrict__ d_out, int seq, int hidden, int heads, float scale,
+                              Dropout dr, int units) {
+  using namespace mma;
+  using L = sm90::Layout<kD>;
+  using S = hop::DqSmem<kD>;
+  constexpr int kN = hop::kDqKeys;
+  constexpr int kStages = hop::kDqStages<kD>;
+  constexpr int kTile = kN * kD * 2;
+  constexpr int kRowTile = hop::kRows * kD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::align1024(smem_raw);
+  Columns* bits = reinterpret_cast<Columns*>(sm + S::kBits);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + S::kBar);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* full = qempty + 2;
+  uint64_t* empty = full + kStages;
+
+  const int qtiles = (seq + hop::kRows - 1) / hop::kRows;
+  const int tiles = (seq + kN - 1) / kN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::bar_init(qfull + s, 1);
+      sm90::bar_init(qempty + s, 4 * hop::kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, 4 * hop::kConsumers);
+    }
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * hop::kConsumers) {  // the producer warpgroup: one warp works
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (warp != 4 * hop::kConsumers) return;
+    int stage = 0;
+    unsigned phase = 0;
+    int n = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const sm90::Unit w(u, qtiles, heads);
+      const int* mask_row = mask ? mask + (size_t)w.b * seq : nullptr;
+      if (lane == 0) {
+        unsigned char* slot = sm + (n & 1) * S::kSlot;
+        sm90::bar_wait(qempty + (n & 1), ((n >> 1) & 1) ^ 1);
+        sm90::bar_arrive_tx(qfull + (n & 1), 2 * kRowTile);
+        L::template load<hop::kRows>(slot, &tq, qfull + (n & 1), w.head, w.tile * hop::kRows, w.b);
+        L::template load<hop::kRows>(slot + kRowTile, &tdo, qfull + (n & 1), w.head, w.tile * hop::kRows, w.b);
+      }
+      auto read_mask = [&](int (&mk)[kN / 32], int i) {
+#pragma unroll
+        for (int c = 0; c < kN / 32; ++c) {
+          const int col = i * kN + 32 * c + lane;
+          mk[c] = col >= seq ? -1 : (mask_row == nullptr || mask_row[col] > 0) ? 1 : 0;
+        }
+      };
+      int next[kN / 32];
+      read_mask(next, 0);
+      for (int j = 0; j < 2 * tiles; ++j) {  // pass 1, then pass 2
+        const int i = j < tiles ? j : j - tiles;
+        int mk[kN / 32];
+#pragma unroll
+        for (int c = 0; c < kN / 32; ++c) mk[c] = next[c];
+        if (j + 1 < 2 * tiles) read_mask(next, (j + 1) % tiles);
+        sm90::bar_wait(empty + stage, phase ^ 1);
+        if (lane == 0) {
+          sm90::bar_expect_tx(full + stage, 2 * kTile);
+          L::template load<kN>(sm + S::kK + stage * kTile, &tk, full + stage, w.head, i * kN, w.b);
+          L::template load<kN>(sm + S::kV + stage * kTile, &tv, full + stage, w.head, i * kN, w.b);
+        }
+        sm90::write_tile_bits<kN>(bits + 4 * stage, mk, lane);
+        sm90::bar_arrive_warp(full + stage);  // the lanes' bits released with it
+        hop::advance<kStages>(stage, phase);
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<sm90::kConsumerRegs>();
+  const int wg = threadIdx.x >> 7;
+  const int t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's first query in the tile
+  const uint32_t k_tiles = smem_addr(sm + S::kK);
+  const uint32_t v_tiles = smem_addr(sm + S::kV);
+  const float sl2e = scale * kLog2e;
+  int stage = 0;
+  unsigned phase = 0;
+  if (wg == 1) sm90::turn_pass(wg);  // warpgroup 0 goes first
+  int n = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+    const sm90::Unit w(u, qtiles, heads);
+    const int row0 = w.tile * hop::kRows + r0;  // the thread's two queries
+    const int row1 = row0 + 8;
+    const size_t stat = ((size_t)w.b * heads + w.head) * seq;
+    // a padded row takes m = 0 and 1 / l = 0, so its probs are 0
+    const float m0 = row0 < seq ? m_in[stat + row0] : 0.f;
+    const float m1 = row1 < seq ? m_in[stat + row1] : 0.f;
+    const float il0 = row0 < seq ? 1.f / l_in[stat + row0] : 0.f;
+    const float il1 = row1 < seq ? 1.f / l_in[stat + row1] : 0.f;
+    const unsigned salt = dropout_salt(dr.seed, w.b, w.head);
+    const unsigned hrow0 = row_term((unsigned)row0, salt);
+    const unsigned hrow1 = row_term((unsigned)row1, salt);
+    // p as the forward forms it (tile_exp)
+    const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
+    const float mb0 = (kBigNeg - m0) * kLog2e, mb1 = (kBigNeg - m1) * kLog2e;
+    const uint32_t q_rows = smem_addr(sm + (n & 1) * S::kSlot) + 64 * wg * L::kRowBytes;
+    const uint32_t do_rows = q_rows + kRowTile;
+
+    // probs (in place of S) and dp = (dO V^T) * keep of key tile i in
+    // `stage`, and the column bits; the products and the exp in the
+    // warpgroup's turn
+    auto recompute = [&](float (&s)[kN / 8][4], float (&dp)[kN / 8][4], int i) {
+      sm90::turn_wait(wg);
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        sm90::Wgmma<kN>::ss(s, L::template kmajor<hop::kRows>(q_rows, k),
+                            L::template kmajor<kN>(k_tiles + stage * kTile, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        sm90::Wgmma<kN>::ss(dp, L::template kmajor<hop::kRows>(do_rows, k),
+                            L::template kmajor<kN>(v_tiles + stage * kTile, k), k > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      const Columns cols = sm90::read_tile_bits(bits + 4 * stage, lane);
+      sm90::tile_exp<kN>(s, cols, sl2e, ml0, ml1, mb0, mb1);
+      sm90::turn_pass(wg);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] *= il0;
+          s[j][2 + e] *= il1;
+          if (dr.on) {
+            const int col = i * kN + 8 * j + 2 * t + e;
+            dp[j][e] *= keep_scale_row(dr, hrow0, col);
+            dp[j][2 + e] *= keep_scale_row(dr, hrow1, col);
+          }
+        }
+      }
+      return cols;
+    };
+
+    sm90::bar_wait(qfull + (n & 1), (n >> 1) & 1);
+
+    // Pass 1: D = rowsum(dp * probs).
+    float d0 = 0.f, d1 = 0.f;
+    for (int i = 0; i < tiles; ++i) {
+      sm90::bar_wait(full + stage, phase);
+      float s[kN / 8][4], dp[kN / 8][4];
+      recompute(s, dp, i);
+      sm90::bar_arrive_warp(empty + stage);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          d0 = fmaf(dp[j][e], s[j][e], d0);
+          d1 = fmaf(dp[j][2 + e], s[j][2 + e], d1);
+        }
+      }
+      hop::advance<kStages>(stage, phase);
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+    if (t == 0) {
+      if (row0 < seq) d_out[stat + row0] = d0;
+      if (row1 < seq) d_out[stat + row1] = d1;
+    }
+
+    // Pass 2: ds = probs * (dp - D) * scale, zero on masked columns,
+    // rounded to bf16 as the A fragments of dQ += ds K.
+    float acc[kD / 8][4];
+    sm90::zero(acc);
+    for (int i = 0; i < tiles; ++i) {
+      sm90::bar_wait(full + stage, phase);
+      float s[kN / 8][4], dp[kN / 8][4];
+      const Columns cols = recompute(s, dp, i);
+      if (i + 1 == tiles) sm90::bar_arrive_warp(qempty + (n & 1));  // Q and dO are read no more
+      uint32_t dsa[kN / 16][4];
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool masked = (cols.masked >> (2 * j + e)) & 1u;
+          ds[e] = masked ? 0.f : s[j][e] * (dp[j][e] - d0) * scale;
+          ds[2 + e] = masked ? 0.f : s[j][2 + e] * (dp[j][2 + e] - d1) * scale;
+        }
+        dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);      // row g
+        dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);  // row g + 8
+      }
+      sm90::fence_regs(dsa);
+      sm90::fence_regs(acc);
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kN / 16; ++k)
+        sm90::Wgmma<kD>::rs(acc, dsa[k], L::template mnmajor<kN>(k_tiles + stage * kTile, k), 1);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::bar_arrive_warp(empty + stage);
+      hop::advance<kStages>(stage, phase);
+    }
+    store_frags<kD>(dq + (size_t)w.b * seq * hidden + (size_t)w.head * kD, acc, row0, 0, seq, hidden, kD, lane);
+  }
+  if (wg == 0) sm90::turn_wait(wg);  // warpgroup 1's last turn_pass
+}
+
+// Launch b, persistent over the units (batch row, head, 128-key tile):
+// two consumer warpgroups of 64 keys, a producer warp. The producer loads
+// each unit's K and V tiles by TMA into one of two slots, then the Q and
+// dO tiles of every query tile through the ring, each with its queries'
+// statistics (m log2 e, (-3e7 - m) log2 e, 1 / l and D from launch a; a
+// query past T takes m = 0, 1 / l = 0, D = 0, so its probs are 0). Each
+// warpgroup computes S^T = K Q^T and dP^T = V dO^T by wgmma from shared
+// memory (in turn with the other), forms probs^T (as the forward forms
+// p), the keep-mask of (query, key), pd^T and ds^T in registers, and adds
+// dV += pd^T dO and dK += ds^T Q by wgmma with pd^T and ds^T as register A
+// fragments and dO and Q read MN-major.
+template <int kD, int kQ>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                                const int* __restrict__ mask, const float* __restrict__ m_in,
+                                const float* __restrict__ l_in, const float* __restrict__ d_in,
+                                mma::bf16* __restrict__ dk, mma::bf16* __restrict__ dv, int seq, int hidden,
+                                int heads, float scale, Dropout dr, int units) {
+  using namespace mma;
+  using L = sm90::Layout<kD>;
+  using S = hop::DkdvSmem<kD, kQ>;
+  constexpr int kStages = hop::kDkdvStages<kD>;
+  constexpr int kTile = kQ * kD * 2;
+  constexpr int kRowTile = hop::kRows * kD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::align1024(smem_raw);
+  float* st = reinterpret_cast<float*>(sm + S::kStat);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + S::kBar);
+  uint64_t* kvempty = kvfull + 2;
+  uint64_t* full = kvempty + 2;
+  uint64_t* empty = full + kStages;
+
+  const int ktiles = (seq + hop::kRows - 1) / hop::kRows;
+  const int tiles = (seq + kQ - 1) / kQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::bar_init(kvfull + s, 1);
+      sm90::bar_init(kvempty + s, 4 * hop::kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, 4 * hop::kConsumers);
+    }
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * hop::kConsumers) {  // the producer warpgroup: one warp works
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (warp != 4 * hop::kConsumers) return;
+    int stage = 0;
+    unsigned phase = 0;
+    int n = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const sm90::Unit w(u, ktiles, heads);
+      const size_t stat = ((size_t)w.b * heads + w.head) * seq;
+      if (lane == 0) {
+        unsigned char* slot = sm + (n & 1) * S::kSlot;
+        sm90::bar_wait(kvempty + (n & 1), ((n >> 1) & 1) ^ 1);
+        sm90::bar_arrive_tx(kvfull + (n & 1), 2 * kRowTile);
+        L::template load<hop::kRows>(slot, &tk, kvfull + (n & 1), w.head, w.tile * hop::kRows, w.b);
+        L::template load<hop::kRows>(slot + kRowTile, &tv, kvfull + (n & 1), w.head, w.tile * hop::kRows, w.b);
+      }
+      // the statistics of query tile i's rows 32 c + lane, one tile ahead:
+      // m, l and D, or 0, 0, 0 past T
+      auto read_stats = [&](float (&m)[kQ / 32], float (&l)[kQ / 32], float (&d)[kQ / 32], int i) {
+#pragma unroll
+        for (int c = 0; c < kQ / 32; ++c) {
+          const int row = i * kQ + 32 * c + lane;
+          const bool in = row < seq;
+          m[c] = in ? m_in[stat + row] : 0.f;
+          l[c] = in ? l_in[stat + row] : 0.f;
+          d[c] = in ? d_in[stat + row] : 0.f;
+        }
+      };
+      float nm[kQ / 32], nl[kQ / 32], nd[kQ / 32];
+      read_stats(nm, nl, nd, 0);
+      for (int i = 0; i < tiles; ++i) {
+        float m[kQ / 32], l[kQ / 32], d[kQ / 32];
+#pragma unroll
+        for (int c = 0; c < kQ / 32; ++c) {
+          m[c] = nm[c];
+          l[c] = nl[c];
+          d[c] = nd[c];
+        }
+        if (i + 1 < tiles) read_stats(nm, nl, nd, i + 1);
+        sm90::bar_wait(empty + stage, phase ^ 1);
+        if (lane == 0) {  // the copies first
+          sm90::bar_expect_tx(full + stage, 2 * kTile);
+          L::template load<kQ>(sm + S::kQt + stage * kTile, &tq, full + stage, w.head, i * kQ, w.b);
+          L::template load<kQ>(sm + S::kDo + stage * kTile, &tdo, full + stage, w.head, i * kQ, w.b);
+        }
+        float* sp = st + stage * 4 * kQ;
+#pragma unroll
+        for (int c = 0; c < kQ / 32; ++c) {
+          const int r = 32 * c + lane;
+          sp[r] = m[c] * kLog2e;
+          sp[kQ + r] = (kBigNeg - m[c]) * kLog2e;
+          sp[2 * kQ + r] = l[c] != 0.f ? 1.f / l[c] : 0.f;
+          sp[3 * kQ + r] = d[c];
+        }
+        sm90::bar_arrive_warp(full + stage);  // the lanes' statistics released with it
+        hop::advance<kStages>(stage, phase);
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<sm90::kConsumerRegs>();
+  const int wg = threadIdx.x >> 7;
+  const int t = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's first key in the tile
+  const uint32_t q_tiles = smem_addr(sm + S::kQt);
+  const uint32_t do_tiles = smem_addr(sm + S::kDo);
+  const float sl2e = scale * kLog2e;
+  int stage = 0;
+  unsigned phase = 0;
+  if (wg == 1) sm90::turn_pass(wg);  // warpgroup 0 goes first
+  int n = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+    const sm90::Unit w(u, ktiles, heads);
+    const int key0 = w.tile * hop::kRows + r0;  // the thread's two keys
+    const int key1 = key0 + 8;
+    const bool masked0 = key0 < seq && mask != nullptr && mask[(size_t)w.b * seq + key0] <= 0;
+    const bool masked1 = key1 < seq && mask != nullptr && mask[(size_t)w.b * seq + key1] <= 0;
+    // the keep-mask hash of (query r, key c) is hash_finish(r * 0x9E3779B9 +
+    // key_term(c)): the key's part summed once
+    const unsigned salt = dropout_salt(dr.seed, w.b, w.head);
+    const unsigned kterm0 = (unsigned)key0 * 0x85EBCA6Bu + salt * 0xC2B2AE35u;
+    const unsigned kterm1 = (unsigned)key1 * 0x85EBCA6Bu + salt * 0xC2B2AE35u;
+    const uint32_t k_rows = smem_addr(sm + (n & 1) * S::kSlot) + 64 * wg * L::kRowBytes;
+    const uint32_t v_rows = k_rows + kRowTile;
+
+    float acc_dk[kD / 8][4], acc_dv[kD / 8][4];
+    sm90::zero(acc_dk);
+    sm90::zero(acc_dv);
+    sm90::bar_wait(kvfull + (n & 1), (n >> 1) & 1);
+    for (int i = 0; i < tiles; ++i) {
+      sm90::bar_wait(full + stage, phase);
+      const uint32_t qt = q_tiles + stage * kTile;
+      const uint32_t dot = do_tiles + stage * kTile;
+      float s[kQ / 8][4], dp[kQ / 8][4];
+      sm90::turn_wait(wg);
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)  // S^T = K Q^T
+        sm90::Wgmma<kQ>::ss(s, L::template kmajor<hop::kRows>(k_rows, k), L::template kmajor<kQ>(qt, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)  // dP^T = V dO^T
+        sm90::Wgmma<kQ>::ss(dp, L::template kmajor<hop::kRows>(v_rows, k), L::template kmajor<kQ>(dot, k),
+                            k > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      if (i + 1 == tiles) sm90::bar_arrive_warp(kvempty + (n & 1));  // K and V are read no more
+      const float* sp = st + stage * 4 * kQ;
+      const int q0 = i * kQ;
+      uint32_t pda[kQ / 16][4], dsa[kQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+        float pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;  // the query, in the tile
+          const float ml = sp[c], mb = sp[kQ + c];
+          const float ilq = sp[2 * kQ + c], dq_row = sp[3 * kQ + c];
+          // p as the forward forms it (tile_exp), for key0 and key1
+          const float p0 = ex2(masked0 ? mb : fmaf(s[j][e], sl2e, -ml)) * ilq;
+          const float p1 = ex2(masked1 ? mb : fmaf(s[j][2 + e], sl2e, -ml)) * ilq;
+          float keep0 = 1.f, keep1 = 1.f;
+          if (dr.on) {
+            const unsigned qterm = (unsigned)(q0 + c) * 0x9E3779B9u;
+            keep0 = hash_finish(qterm + kterm0) >= dr.thresh ? dr.inv_keep : 0.f;
+            keep1 = hash_finish(qterm + kterm1) >= dr.thresh ? dr.inv_keep : 0.f;
+          }
+          pd[e] = dr.on ? p0 * keep0 : p0;
+          pd[2 + e] = dr.on ? p1 * keep1 : p1;
+          const float dp0 = dr.on ? dp[j][e] * keep0 : dp[j][e];
+          const float dp1 = dr.on ? dp[j][2 + e] * keep1 : dp[j][2 + e];
+          ds[e] = masked0 ? 0.f : p0 * (dp0 - dq_row) * scale;
+          ds[2 + e] = masked1 ? 0.f : p1 * (dp1 - dq_row) * scale;
+        }
+        pda[j >> 1][(j & 1) * 2] = pack_bf16(pd[0], pd[1]);      // key row g
+        pda[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pd[2], pd[3]);  // key row g + 8
+        dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      sm90::turn_pass(wg);  // the turn: the products and the exp
+      sm90::fence_regs(pda);
+      sm90::fence_regs(dsa);
+      sm90::fence_regs(acc_dv);
+      sm90::fence_regs(acc_dk);
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kQ / 16; ++k)  // dV += pd^T dO
+        sm90::Wgmma<kD>::rs(acc_dv, pda[k], L::template mnmajor<kQ>(dot, k), 1);
+#pragma unroll
+      for (int k = 0; k < kQ / 16; ++k)  // dK += ds^T Q
+        sm90::Wgmma<kD>::rs(acc_dk, dsa[k], L::template mnmajor<kQ>(qt, k), 1);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(acc_dv);
+      sm90::fence_regs(acc_dk);
+      sm90::bar_arrive_warp(empty + stage);
+      hop::advance<kStages>(stage, phase);
+    }
+    const size_t base = (size_t)w.b * seq * hidden + (size_t)w.head * kD;
+    store_frags<kD>(dv + base, acc_dv, key0, 0, seq, hidden, kD, lane);
+    store_frags<kD>(dk + base, acc_dk, key0, 0, seq, hidden, kD, lane);
+  }
+  if (wg == 0) sm90::turn_wait(wg);  // warpgroup 1's last turn_pass
+}
+
+template <int kD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+                 const void* m, const void* l, void* dq, void* dk, void* dv, void* dbuf, int batch, int seq,
+                 int hidden, int heads, float scale, Dropout dr, cudaStream_t stream) {
+  constexpr int kN = hop::kDqKeys;
+  constexpr int kQ = hop::dkdv_queries<kD>();
+  constexpr int kCB = sm90::Layout<kD>::kCB;
+  // launch a reads Q and dO in tiles of the unit's rows and K, V in key
+  // tiles; launch b the other way round
+  CUtensorMap rows[4], tiles[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    int err = sm90::encode_map(&rows[i], ptrs[i], batch, seq, hidden, kCB, hop::kRows);
+    if (!err) err = sm90::encode_map(&tiles[i], ptrs[i], batch, seq, hidden, kCB, i == 1 || i == 2 ? kN : kQ);
+    if (err) return err;
+  }
+  auto* dq_kernel = attention_bwd_dq_wgmma_kernel<kD>;
+  auto* dkdv_kernel = attention_bwd_dkdv_wgmma_kernel<kD, kQ>;
+  constexpr int smem_dq = hop::DqSmem<kD>::kBytes;
+  constexpr int smem_dkdv = hop::DkdvSmem<kD, kQ>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+  if (e != cudaSuccess) return (int)e;
+  const int* mt = static_cast<const int*>(mask);
+  const float* mf = static_cast<const float*>(m);
+  const float* lf = static_cast<const float*>(l);
+  float* df = static_cast<float*>(dbuf);
+  const int units = (seq + hop::kRows - 1) / hop::kRows * heads * batch;
+  const int blocks = sm90::persistent_blocks(units);
+  dq_kernel<<<blocks, hop::kThreads, smem_dq, stream>>>(rows[0], tiles[1], tiles[2], rows[3], mt, mf, lf,
+                                                        static_cast<mma::bf16*>(dq), df, seq, hidden, heads,
+                                                        scale, dr, units);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_kernel<<<blocks, hop::kThreads, smem_dkdv, stream>>>(tiles[0], rows[1], rows[2], tiles[3], mt, mf, lf, df,
+                                                            static_cast<mma::bf16*>(dk),
+                                                            static_cast<mma::bf16*>(dv), seq, hidden, heads,
+                                                            scale, dr, units);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------- FMA units: f32, or bf16 with d > 256
 
 template <typename T>
@@ -823,9 +1396,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 // C entry point. dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the
 // three gradients), head dim d = hidden / heads. route: 0 = FMA units
-// (either dtype, any d % 8 == 0, any T), 1 = tensor cores (bfloat16,
-// d <= 256, tensors 16-byte aligned): the whole-head kernel for d = 64 and
-// T <= 128, else the tiled pair. dbuf is (B, heads, T) f32 scratch for the
+// (either dtype, any d % 8 == 0, any T), 1 = tensor cores by mma.sync
+// (bfloat16, d <= 256, tensors 16-byte aligned): the whole-head kernel for
+// d = 64 and T <= 128, else the tiled pair; 2 = tensor cores by wgmma on
+// TMA-fed tiles (bfloat16, d = 32, 64 or 128, any T, tensors 16-byte
+// aligned), a pair. dbuf is (B, heads, T) f32 scratch for the
 // row term D, written by the first launch of a pair and read by the second
 // (the whole-head kernel does not read it). mask is (B, T) int32 with 1 =
 // keep, or null; m and l are the forward's (B, heads, T) f32 statistics;
@@ -841,6 +1416,19 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
   const Dropout dr{dropout, seed, thresh, inv_keep};
   if (heads <= 0 || hidden % heads || (hidden / heads) % 8 || seq <= 0) return (int)cudaErrorInvalidValue;
   const int dim = hidden / heads;
+  if (route == 2) {
+    if (dtype != 1 || dbuf == nullptr) return (int)cudaErrorInvalidValue;
+    if (dim == 32)
+      return launch_wgmma<32>(q, k, v, dout, mask, m, l, dq, dk, dv, dbuf, batch, seq, hidden, heads, scale,
+                              dr, st);
+    if (dim == 64)
+      return launch_wgmma<64>(q, k, v, dout, mask, m, l, dq, dk, dv, dbuf, batch, seq, hidden, heads, scale,
+                              dr, st);
+    if (dim == 128)
+      return launch_wgmma<128>(q, k, v, dout, mask, m, l, dq, dk, dv, dbuf, batch, seq, hidden, heads, scale,
+                               dr, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (route == 1) {
     if (dtype != 1 || dim > 256) return (int)cudaErrorInvalidValue;
     if (dim == mma::kHeadDim && seq <= mma::kMaxSeq)

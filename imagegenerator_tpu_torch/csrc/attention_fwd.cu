@@ -24,8 +24,9 @@
 // 3.35 TB/s) against 13 GFLOP of products; the work per head grows as T^2
 // and passes the bytes near T = 512. The (T, T) scores never leave the SM.
 //
-// Three kernels, chosen from (dtype, d, T); the wrapper's rule names the
-// route (tensor cores or FMA units) and this file the kernel:
+// Four kernels, chosen from (dtype, d, T); the wrapper's rule names the
+// route (kernel_route: "wgmma", "mma" or "fma") and the C entry point
+// takes it as its route argument:
 //
 // 1. Tensor cores, whole head: bf16, d = 64, T <= 128
 //    (attention_fwd_mma_kernel). One block of 4 warps per (batch row,
@@ -43,7 +44,35 @@
 //    result leaves through the warp's own rows of the Q tile as 16-byte
 //    stores.
 //
-// 2. Tensor cores, tiled: bf16, any other T, 8 <= d <= 256
+// 2. Tensor cores, Hopper: bf16, d = 32, 64 or 128 at every T outside
+//    kernel 1's domain (attention_fwd_wgmma_kernel<d, slabs>, the "wgmma"
+//    route; machinery in attention_sm90.cuh). Persistent: one block a SM
+//    walks units of 128 queries (256 where d <= 64 and T > 128: two slabs
+//    of 64 rows for each consumer warpgroup), a producer warp keeping K
+//    and V tiles in flight by TMA through a ring of mbarriers and two
+//    consumer warpgroups running wgmma: S = Q K^T with both operands in
+//    shared memory (the tensor map's 64- or 128-byte swizzle), P V with P
+//    from registers and V read MN-major. The same two passes as kernel 3,
+//    the same p (tile_exp), the same keep bits (each accumulator's own
+//    (query, key): warp w of a warpgroup holds rows 16 w .. 16 w + 15 of
+//    an m64 product, laid out as mma.sync's C tiles). What bounds it: its
+//    load pipeline (at (256, 512, 768) the TMA loads and barriers alone,
+//    every product and exp taken out, take 0.63 of its 0.91 ms with an
+//    all-kept mask on an NVIDIA H100 80GB HBM3 at 700 W:
+//    tools/probe_torch_attention.py --ablate; fewer bytes a query, two
+//    slabs, helped a little, K kept in the ring between the passes not at
+//    all, so that floor is not L2's bandwidth alone), then the exp on the
+//    special-function unit, which the two warpgroups take in turns with
+//    their score products, and with a ragged mask the per-key selects of
+//    the masked path. At seq_len 512 it is slower than
+//    F.scaled_dot_product_attention (PERF.md): a one-pass online softmax
+//    would read K once, but would round p against a running max, which
+//    the JAX kernel does not. Issuing the next tile's scores before this
+//    tile's exp (FA3's intra-warpgroup overlap) needs a second set of
+//    score registers; tried, it spilled and ptxas serialized the
+//    products, and was slower.
+//
+// 3. Tensor cores, tiled: bf16, 8 <= d <= 256 off kernel 2's head dims
 //    (attention_fwd_tiled_kernel<kDim, kKeys, kWarps>, kDim the head dim
 //    rounded up to 32, 64, 128 or 256). One block of kWarps warps (8 up to
 //    kDim 64, else 4), 16 queries each, per (batch row, head, query tile),
@@ -68,7 +97,7 @@
 //    rows a warp each product waits on ldmatrix and on the one before it;
 //    at (256, 512, 768) it runs at about 14% of the bf16 peak (PERF.md).
 //
-// 3. FMA units: f32 inputs (tensor cores would mean TF32), or bf16 with
+// 4. FMA units: f32 inputs (tensor cores would mean TF32), or bf16 with
 //    d > 256 (attention_fwd_kernel). 128 threads per (batch row, head,
 //    64-query tile); Q, K, V and p are 64 x 64 f32 pieces in shared memory
 //    with an odd row stride (65), one shared-memory load per FMA, any T
@@ -83,6 +112,7 @@
 
 #include "attention_common.cuh"
 #include "attention_mma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -409,6 +439,336 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* mask, 
   return (int)cudaGetLastError();
 }
 
+// -------------------------------- tensor cores, Hopper: d = 32, 64, 128
+
+namespace hop {
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // and a producer warpgroup
+
+// A unit is kSlabs x 64 queries for each consumer warpgroup: 2 slabs (256
+// queries a unit) where the head dim leaves the registers for them and T
+// is past one unit of 128, else 1, so that every K and V tile loaded
+// serves twice the queries (a few percent faster at seq_len 512). Key
+// tiles: 128 keys with one slab, 64 with two (the registers of the slabs'
+// scores), in a ring of as many stages as shared memory holds beside two
+// Q tiles, up to 6. (Keeping a head's K and V in the ring from pass 1 to
+// pass 2 where they fit, so that K is loaded once, measured no faster.)
+template <int kD>
+constexpr int slabs(int seq) { return kD <= 64 && seq > 64 * kConsumers ? 2 : 1; }
+template <int kSlabs>
+constexpr int kKeysOf = kSlabs == 2 ? 64 : 128;
+template <int kD, int kSlabs>
+constexpr int kStagesOf = kD >= 128 ? 2 : 6;
+
+// Shared memory, byte offsets from a 1024-byte boundary: two Q tiles
+// (this unit's and the next one's), the K and V tiles of each stage, each
+// stage's column bits, the barriers (Q full and empty, two each; the
+// stages' full and empty).
+template <int kD, int kSlabs, int kN = kKeysOf<kSlabs>, int kStages = kStagesOf<kD, kSlabs>>
+struct Smem {
+  static constexpr int kRows = 64 * kConsumers * kSlabs;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + 2 * kRows * kD * 2;
+  static constexpr int kV = kK + kStages * kN * kD * 2;
+  static constexpr int kBits = kV + kStages * kN * kD * 2;
+  static constexpr int kBar = kBits + kStages * 4 * 8;
+  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;  // and the alignment's slack
+};
+
+template <int kStages>
+__device__ __forceinline__ void advance(int& stage, unsigned& phase) {
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+}  // namespace hop
+
+// Persistent: one block a SM walks the units (batch row, head, tile of
+// kRows queries) u = blockIdx.x, + gridDim.x, ... Warpgroups 0 and 1
+// consume, kSlabs x 64 queries each; one warp of warpgroup 2 produces,
+// with its registers handed to the consumers (setmaxnreg). The producer
+// loads each unit's Q tile by TMA into one of two slots (the next unit's
+// loads while this one runs), then walks the unit's key tiles twice
+// through a ring of full / empty mbarriers: K alone in pass 1, K and V in
+// pass 2, each tile with its keys' column bits (masked, past T) built
+// from the mask read one tile ahead. Each consumer warpgroup runs S = Q
+// K^T for each slab as d / 16 wgmma m64nNk16 from shared memory; the two
+// warpgroups take turns (named barriers): in pass 1 a turn is the score
+// products, in pass 2 the products and the exp, so that one warpgroup's
+// exp (the special-function unit) runs under the other's P V. Pass 1
+// folds the row max; pass 2 forms p against the final m (tile_exp), sums
+// l, applies the keep-mask hash of each accumulator's own (query, key),
+// rounds p to bf16 as register A fragments and adds P V by wgmma with V
+// read MN-major. O = (P V) / l leaves from the accumulators, m and l
+// beside it.
+template <int kD, int kSlabs>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const int* __restrict__ mask,
+                           mma::bf16* __restrict__ o, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int seq, int hidden, int heads, float scale,
+                           Dropout dr, int units) {
+  using namespace mma;
+  using L = sm90::Layout<kD>;
+  using S = hop::Smem<kD, kSlabs>;
+  constexpr int kN = hop::kKeysOf<kSlabs>;
+  constexpr int kStages = hop::kStagesOf<kD, kSlabs>;
+  constexpr int kRows = S::kRows;
+  constexpr int kTile = kN * kD * 2;      // bytes of a K or V tile
+  constexpr int kQTile = kRows * kD * 2;  // bytes of a Q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::align1024(smem_raw);
+  Columns* bits = reinterpret_cast<Columns*>(sm + S::kBits);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + S::kBar);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* full = qempty + 2;
+  uint64_t* empty = full + kStages;
+
+  const int qtiles = (seq + kRows - 1) / kRows;
+  const int tiles = (seq + kN - 1) / kN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::bar_init(qfull + s, 1);
+      sm90::bar_init(qempty + s, 4 * hop::kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, 4 * hop::kConsumers);
+    }
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * hop::kConsumers) {  // the producer warpgroup: one warp works
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (warp != 4 * hop::kConsumers) return;
+    int stage = 0;
+    unsigned phase = 0;
+    int n = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const sm90::Unit w(u, qtiles, heads);
+      const int* mask_row = mask ? mask + (size_t)w.b * seq : nullptr;
+      if (lane == 0) {
+        sm90::bar_wait(qempty + (n & 1), ((n >> 1) & 1) ^ 1);
+        sm90::bar_arrive_tx(qfull + (n & 1), kQTile);
+        L::template load<kRows>(sm + S::kQ + (n & 1) * kQTile, &tq, qfull + (n & 1), w.head, w.tile * kRows,
+                                w.b);
+      }
+      // the kinds of key tile i's keys 32 c + lane: 1 kept, 0 masked, -1
+      // past T
+      auto read_mask = [&](int (&mk)[kN / 32], int i) {
+#pragma unroll
+        for (int c = 0; c < kN / 32; ++c) {
+          const int col = i * kN + 32 * c + lane;
+          mk[c] = col >= seq ? -1 : (mask_row == nullptr || mask_row[col] > 0) ? 1 : 0;
+        }
+      };
+      int next[kN / 32];
+      read_mask(next, 0);
+      for (int j = 0; j < 2 * tiles; ++j) {  // pass 1, then pass 2
+        const int i = j < tiles ? j : j - tiles;
+        const bool with_v = j >= tiles;
+        int mk[kN / 32];
+#pragma unroll
+        for (int c = 0; c < kN / 32; ++c) mk[c] = next[c];
+        if (j + 1 < 2 * tiles) read_mask(next, (j + 1) % tiles);
+        sm90::bar_wait(empty + stage, phase ^ 1);
+        if (lane == 0) {  // the copies first; the bits' ballots overlap them
+          sm90::bar_expect_tx(full + stage, (with_v ? 2 : 1) * kTile);
+          L::template load<kN>(sm + S::kK + stage * kTile, &tk, full + stage, w.head, i * kN, w.b);
+          if (with_v) L::template load<kN>(sm + S::kV + stage * kTile, &tv, full + stage, w.head, i * kN, w.b);
+        }
+        sm90::write_tile_bits<kN>(bits + 4 * stage, mk, lane);
+        sm90::bar_arrive_warp(full + stage);  // the lanes' bits released with it
+        hop::advance<kStages>(stage, phase);
+      }
+    }
+    return;
+  }
+
+  sm90::reg_alloc<sm90::kConsumerRegs>();
+  // a consumer warpgroup: queries 64 (kSlabs wg + sl) + [0, 64) of the
+  // unit's tile for its slabs sl, warp w of each 16
+  const int wg = threadIdx.x >> 7;
+  const int t = lane & 3;
+  const int r0 = 64 * kSlabs * wg + 16 * (warp & 3) + (lane >> 2);  // the thread's first query, slab 0
+  const uint32_t k_tiles = smem_addr(sm + S::kK);
+  const uint32_t v_tiles = smem_addr(sm + S::kV);
+  const float sl2e = scale * kLog2e;
+  int stage = 0;
+  unsigned phase = 0;
+  if (wg == 1) sm90::turn_pass(wg);  // warpgroup 0 goes first
+  int n = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+    const sm90::Unit w(u, qtiles, heads);
+    const int row0 = w.tile * kRows + r0;  // the thread's queries: row0 + 64 sl and + 8
+    const uint32_t q_rows = smem_addr(sm + S::kQ + (n & 1) * kQTile) + 64 * kSlabs * wg * L::kRowBytes;
+
+    // the raw scores q . k of the key tile in `stage` for each slab, in
+    // the warpgroup's turn (which the caller passes on)
+    auto scores = [&](float (&s)[kSlabs][kN / 8][4]) {
+      sm90::turn_wait(wg);
+      sm90::wg_fence();
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl)
+#pragma unroll
+        for (int k = 0; k < kD / 16; ++k)
+          sm90::Wgmma<kN>::ss(s[sl], L::template kmajor<kRows>(q_rows + 64 * sl * L::kRowBytes, k),
+                              L::template kmajor<kN>(k_tiles + stage * kTile, k), k > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::fence_regs(s[sl]);
+    };
+
+    sm90::bar_wait(qfull + (n & 1), (n >> 1) & 1);
+
+    // Pass 1: m = rowmax(S).
+    float m0[kSlabs], m1[kSlabs];
+#pragma unroll
+    for (int sl = 0; sl < kSlabs; ++sl) m0[sl] = m1[sl] = -INFINITY;
+    for (int i = 0; i < tiles; ++i) {
+      sm90::bar_wait(full + stage, phase);
+      float s[kSlabs][kN / 8][4];
+      scores(s);
+      sm90::turn_pass(wg);
+      const Columns cols = sm90::read_tile_bits(bits + 4 * stage, lane);
+      sm90::bar_arrive_warp(empty + stage);
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::tile_row_max<kN>(s[sl], cols, scale, m0[sl], m1[sl]);
+      hop::advance<kStages>(stage, phase);
+    }
+
+    // Pass 2: p = exp(S - m) against the final m, l = rowsum(p) before
+    // dropout and rounding, the keep-mask, p rounded to bf16 as the A
+    // fragments of O += P V.
+    const unsigned salt = dropout_salt(dr.seed, w.b, w.head);
+    unsigned hrow0[kSlabs], hrow1[kSlabs];
+    float ml0[kSlabs], ml1[kSlabs], mb0[kSlabs], mb1[kSlabs], l0[kSlabs], l1[kSlabs];
+    float acc[kSlabs][kD / 8][4];
+#pragma unroll
+    for (int sl = 0; sl < kSlabs; ++sl) {
+      m0[sl] = quad_max(m0[sl]);
+      m1[sl] = quad_max(m1[sl]);
+      hrow0[sl] = row_term((unsigned)(row0 + 64 * sl), salt);
+      hrow1[sl] = row_term((unsigned)(row0 + 64 * sl + 8), salt);
+      ml0[sl] = m0[sl] * kLog2e;
+      ml1[sl] = m1[sl] * kLog2e;
+      mb0[sl] = (kBigNeg - m0[sl]) * kLog2e;
+      mb1[sl] = (kBigNeg - m1[sl]) * kLog2e;
+      l0[sl] = l1[sl] = 0.f;
+      sm90::zero(acc[sl]);
+    }
+    for (int i = 0; i < tiles; ++i) {
+      sm90::bar_wait(full + stage, phase);
+      float s[kSlabs][kN / 8][4];
+      scores(s);
+      if (i + 1 == tiles) sm90::bar_arrive_warp(qempty + (n & 1));  // the Q tile is read no more
+      const Columns cols = sm90::read_tile_bits(bits + 4 * stage, lane);
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::tile_exp<kN>(s[sl], cols, sl2e, ml0[sl], ml1[sl], mb0[sl], mb1[sl]);
+      sm90::turn_pass(wg);
+      uint32_t p[kSlabs][kN / 16][4];
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) {
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          float pr[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = i * kN + 8 * j + 2 * t + e;
+            float p0 = s[sl][j][e];
+            float p1 = s[sl][j][2 + e];
+            l0[sl] += p0;
+            l1[sl] += p1;
+            if (dr.on) {
+              p0 *= keep_scale_row(dr, hrow0[sl], col);
+              p1 *= keep_scale_row(dr, hrow1[sl], col);
+            }
+            pr[e] = p0;
+            pr[2 + e] = p1;
+          }
+          p[sl][j >> 1][(j & 1) * 2] = pack_bf16(pr[0], pr[1]);      // row g
+          p[sl][j >> 1][(j & 1) * 2 + 1] = pack_bf16(pr[2], pr[3]);  // row g + 8
+        }
+        sm90::fence_regs(p[sl]);
+        sm90::fence_regs(acc[sl]);
+      }
+      sm90::wg_fence();
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl)
+#pragma unroll
+        for (int k = 0; k < kN / 16; ++k)
+          sm90::Wgmma<kD>::rs(acc[sl], p[sl][k], L::template mnmajor<kN>(v_tiles + stage * kTile, k), 1);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::fence_regs(acc[sl]);
+      sm90::bar_arrive_warp(empty + stage);
+      hop::advance<kStages>(stage, phase);
+    }
+
+    // O = (P V) / l, each quotient as the division rounds it; m and l
+    const size_t base = (size_t)w.b * seq * hidden + (size_t)w.head * kD;
+    const size_t stat = ((size_t)w.b * heads + w.head) * seq;
+#pragma unroll
+    for (int sl = 0; sl < kSlabs; ++sl) {
+      const int ra = row0 + 64 * sl, rb = ra + 8;
+      l0[sl] = quad_sum(l0[sl]);
+      l1[sl] = quad_sum(l1[sl]);
+      sm90::divide_rows(acc[sl], l0[sl], l1[sl]);
+      store_frags<kD>(o + base, acc[sl], ra, 0, seq, hidden, kD, lane);
+      if (t == 0) {
+        if (ra < seq) {
+          m_out[stat + ra] = m0[sl];
+          l_out[stat + ra] = l0[sl];
+        }
+        if (rb < seq) {
+          m_out[stat + rb] = m1[sl];
+          l_out[stat + rb] = l1[sl];
+        }
+      }
+    }
+  }
+  if (wg == 0) sm90::turn_wait(wg);  // warpgroup 1's last turn_pass
+}
+
+template <int kD, int kSlabs>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, void* o, void* m, void* l,
+                 int batch, int seq, int hidden, int heads, float scale, Dropout dr, cudaStream_t stream) {
+  using S = hop::Smem<kD, kSlabs>;
+  constexpr int kCB = sm90::Layout<kD>::kCB;
+  CUtensorMap tq, tk, tv;
+  int err = sm90::encode_map(&tq, q, batch, seq, hidden, kCB, S::kRows);
+  if (!err) err = sm90::encode_map(&tk, k, batch, seq, hidden, kCB, hop::kKeysOf<kSlabs>);
+  if (!err) err = sm90::encode_map(&tv, v, batch, seq, hidden, kCB, hop::kKeysOf<kSlabs>);
+  if (err) return err;
+  auto* kernel = attention_fwd_wgmma_kernel<kD, kSlabs>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int units = (seq + S::kRows - 1) / S::kRows * heads * batch;
+  kernel<<<sm90::persistent_blocks(units), hop::kThreads, S::kBytes, stream>>>(
+      tq, tk, tv, static_cast<const int*>(mask), static_cast<mma::bf16*>(o), static_cast<float*>(m),
+      static_cast<float*>(l), seq, hidden, heads, scale, dr, units);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* mask, void* o, void* m, void* l,
+                 int batch, int seq, int hidden, int heads, float scale, Dropout dr, cudaStream_t stream) {
+  if constexpr (kD <= 64) {
+    if (hop::slabs<kD>(seq) == 2)
+      return launch_wgmma<kD, 2>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, stream);
+  }
+  return launch_wgmma<kD, 1>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, stream);
+}
+
 // ------------------------------------- FMA units: f32, or bf16 with d > 256
 
 template <typename T>
@@ -507,8 +867,10 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 
 // C entry point. dtype: 0 = float32, 1 = bfloat16 (q, k, v and o), head dim
 // d = hidden / heads. route: 0 = FMA units (either dtype, any d % 8 == 0,
-// any T), 1 = tensor cores (bfloat16, d <= 256; tensors 16-byte aligned):
-// the whole-head kernel for d = 64 and T <= 128, else the tiled one. mask
+// any T), 1 = tensor cores by mma.sync (bfloat16, d <= 256; tensors
+// 16-byte aligned): the whole-head kernel for d = 64 and T <= 128, else
+// the tiled one; 2 = tensor cores by wgmma on TMA-fed tiles (bfloat16,
+// d = 32, 64 or 128, any T; tensors 16-byte aligned). mask
 // is (B, T) int32 with 1 = keep, or null. scale is 1 / sqrt(d). dropout =
 // 0 turns the keep-mask off; otherwise keep iff hash >= thresh, kept p
 // scaled by inv_keep. Shapes are checked by the Python wrapper. Returns
@@ -522,6 +884,13 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   const Dropout dr{dropout, seed, thresh, inv_keep};
   if (heads <= 0 || hidden % heads || (hidden / heads) % 8 || seq <= 0) return (int)cudaErrorInvalidValue;
   const int dim = hidden / heads;
+  if (route == 2) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (dim == 32) return launch_wgmma<32>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, st);
+    if (dim == 64) return launch_wgmma<64>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, st);
+    if (dim == 128) return launch_wgmma<128>(q, k, v, mask, o, m, l, batch, seq, hidden, heads, scale, dr, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (route == 1) {
     if (dtype != 1 || dim > 256) return (int)cudaErrorInvalidValue;
     if (dim == mma::kHeadDim && seq <= mma::kMaxSeq)

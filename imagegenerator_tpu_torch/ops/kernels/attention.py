@@ -7,7 +7,8 @@ which BERT reaches through ``fused_attention`` when
 ``BertConfig.fused_attention`` is set. On a CUDA tensor the wrappers
 launch the hand-written kernels in ``csrc/attention_fwd.cu`` and
 ``csrc/attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by ``_build``;
-their tensor-core pieces are in ``csrc/attention_mma.cuh``);
+their ``mma.sync`` pieces are in ``csrc/attention_mma.cuh``, their
+``wgmma``, TMA and mbarrier pieces in ``csrc/attention_sm90.cuh``);
 on a CPU tensor they run ``attention_reference`` and
 ``attention_bwd_reference``, the plain PyTorch versions of the same
 functions. ``fused_attention`` is a ``torch.autograd.Function`` whose
@@ -21,15 +22,20 @@ T^2. The plain versions write and reread the (B, heads, T, T) scores and
 probabilities between a dozen small kernels each way; the kernels keep
 them on the SM.
 
-Two routes, one rule on dtype and head dim (``kernel_route``): bf16
-inputs with d <= 256 take the tensor cores (``mma.sync`` m16n8k16 on bf16
-tiles in shared memory, scores and probabilities in registers), at any
-T: a kernel that keeps a whole head in shared memory where d = 64 and
-T <= 128 (the backward one launch with each of its five products once),
-else kernels that walk the keys (and in the backward's second launch the
-queries) in tiles, two passes so that p is formed against the final row
-max as on the TPU. f32 inputs, where tensor cores would mean TF32, and
-bf16 with d > 256 take the FMA kernels (64 x 64 f32 pieces in shared
+Three routes, one rule on dtype, head dim and length (``kernel_route``):
+bf16 inputs with d = 32, 64 or 128 take the Hopper kernels (``"wgmma"``,
+at every T but d = 64 with T <= 128): a producer warp keeps K and V
+tiles in flight by TMA through a ring of mbarriers, two consumer
+warpgroups run the products as ``wgmma`` (scores from shared memory,
+P V with P from registers), two passes over the key tiles so that p is
+formed against the final row max as on the TPU; the backward is two
+launches (dq, then dk and dv). Other bf16 inputs with d <= 256 take the
+``mma.sync`` kernels (``"mma"``): a kernel that keeps a whole head in
+shared memory where d = 64 and T <= 128 (the backward one launch with
+each of its five products once), else kernels that walk the keys (and in
+the backward's second launch the queries) in tiles, in the same two
+passes. f32 inputs, where tensor cores would mean TF32, and bf16 with
+d > 256 take the FMA kernels (``"fma"``: 64 x 64 f32 pieces in shared
 memory, the same two passes, any d and T). Each backward but the
 whole-head one is two launches with the row term D through a device
 buffer. It is no fallback: on a CUDA tensor the wrapper launches the
@@ -45,9 +51,9 @@ reductions, l summed from p before dropout, probabilities rounded to v's
 dtype before ``p V``, the context divided by l; in the backward ``pd``
 rounded to do's dtype before ``dv``, ``ds`` zero on masked key columns
 and rounded to q's dtype before ``dq`` and ``dk``, ``dq`` summed in a
-fixed order (no atomics). One departure, in the tiled tensor-core
-kernels: p is ``2^(s scale log2 e - m log2 e)`` by one FMA and the
-``ex2`` unit, within about 1e-6 relative of ``exp(scale s - m)`` for
+fixed order (no atomics). One departure, in the tiled and Hopper
+tensor-core kernels: p is ``2^(s scale log2 e - m log2 e)`` by one FMA and
+the ``ex2`` unit, within about 1e-6 relative of ``exp(scale s - m)`` for
 scaled scores in the tens; their forward and backward form it alike.
 
 Dropout: the keep-mask is the JAX package's interpret-mode counter hash
@@ -68,20 +74,27 @@ from imagegenerator_tpu_torch.ops.kernels import _build
 
 BIG_NEG = -3e7
 MMA_MAX_HEAD_DIM = 256  # bf16 head dims past this take the FMA kernels
+WGMMA_HEAD_DIMS = (32, 64, 128)  # bf16 head dims of the Hopper kernels
+WHOLE_HEAD = (64, 128)  # (d, largest T) of the mma.sync whole-head kernels
+_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}  # the C entry points' route argument
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
 # Kernel launches so far; the wrappers add one per launch and nothing
 # else does. ``launches`` counts forward launches at any rate,
 # ``dropout_launches`` those of them with dropout on, ``bwd_launches``
-# backward launches, both over the two routes; ``mma_launches`` and
-# ``mma_bwd_launches`` count those of them that went to the tensor-core
-# kernels. Set them to 0 to count a run.
+# backward launches, all over the three routes; ``mma_launches`` and
+# ``mma_bwd_launches`` count those of them that went to tensor-core
+# kernels (``mma.sync`` or ``wgmma``), ``wgmma_launches`` and
+# ``wgmma_bwd_launches`` those that went to the Hopper ones. Set them to
+# 0 to count a run.
 launches = 0
 dropout_launches = 0
 bwd_launches = 0
 mma_launches = 0
 mma_bwd_launches = 0
+wgmma_launches = 0
+wgmma_bwd_launches = 0
 # The model FLOPs of those launches (``fwd_flops``, ``bwd_flops``), which
 # ``torch.utils.flop_counter.FlopCounterMode`` cannot see in a kernel
 # launched through ``ctypes``; the bench adds them to its count.
@@ -234,17 +247,22 @@ def attention_bwd_reference(q, k, v, do, mask, m, l, num_heads: int, rate: float
 # ------------------------------------------------------------------ kernels
 
 
-def kernel_route(dtype, head_dim: int) -> str:
-    """Which kernels a CUDA tensor of ``dtype`` and head dim ``head_dim``
-    takes, at any T: ``"mma"`` (tensor cores) for bf16 with d <= 256,
-    else ``"fma"``. Within the tensor-core route the C entry point takes
-    the whole-head kernels at d = 64 and T <= 128 and the tiled ones
-    elsewhere."""
-    return "mma" if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM else "fma"
+def kernel_route(dtype, head_dim: int, seq_len: int) -> str:
+    """Which kernels a CUDA tensor of ``dtype``, head dim ``head_dim`` and
+    length ``seq_len`` takes: ``"wgmma"`` (the Hopper tensor-core kernels)
+    for bf16 with d = 32, 64 or 128 outside the whole-head kernels'
+    domain (d = 64, T <= 128); ``"mma"`` (the ``mma.sync`` tensor-core
+    kernels: whole-head at d = 64 and T <= 128, else tiled) for the other
+    bf16 head dims up to 256; else ``"fma"``."""
+    if dtype != torch.bfloat16 or head_dim > MMA_MAX_HEAD_DIM:
+        return "fma"
+    if head_dim in WGMMA_HEAD_DIMS and not (head_dim == WHOLE_HEAD[0] and seq_len <= WHOLE_HEAD[1]):
+        return "wgmma"
+    return "mma"
 
 
 def _route(q, num_heads: int) -> str:
-    return kernel_route(q.dtype, q.shape[2] // num_heads)
+    return kernel_route(q.dtype, q.shape[2] // num_heads, q.shape[1])
 
 
 @functools.cache
@@ -308,8 +326,8 @@ def _device(q):
 
 def _launch_fwd(q, k, v, mask, num_heads, drop, route):
     """Launch the forward kernel of ``route`` on checked CUDA tensors."""
-    global launches, dropout_launches, mma_launches, flops
-    mma = _route_arg(route, (q, k, v))
+    global launches, dropout_launches, mma_launches, wgmma_launches, flops
+    arg = _route_arg(route, (q, k, v))
     B, T, H = q.shape
     o = torch.empty_like(q)
     m = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
@@ -319,13 +337,14 @@ def _launch_fwd(q, k, v, mask, num_heads, drop, route):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], mma, _scale(H, num_heads), *drop,
+            B, T, H, num_heads, _DTYPES[q.dtype], arg, _scale(H, num_heads), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_fwd")
     launches += 1
     dropout_launches += drop[0]
-    mma_launches += mma
+    mma_launches += arg > 0
+    wgmma_launches += arg == 2
     flops += fwd_flops(B, T, H)
     return o, m, l
 
@@ -333,8 +352,8 @@ def _launch_fwd(q, k, v, mask, num_heads, drop, route):
 def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
     """Launch the backward kernel or kernels of ``route`` on checked CUDA
     tensors."""
-    global bwd_launches, mma_bwd_launches, flops
-    mma = _route_arg(route, (q, k, v, do))
+    global bwd_launches, mma_bwd_launches, wgmma_bwd_launches, flops
+    arg = _route_arg(route, (q, k, v, do))
     B, T, H = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     # the row term D, from a two-launch backward's first launch to its second
@@ -345,12 +364,13 @@ def _launch_bwd(q, k, v, do, mask, m, l, num_heads, drop, route):
             None if mask is None else mask.data_ptr(),
             m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             d_row.data_ptr(),
-            B, T, H, num_heads, _DTYPES[q.dtype], mma, _scale(H, num_heads), *drop,
+            B, T, H, num_heads, _DTYPES[q.dtype], arg, _scale(H, num_heads), *drop,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "attention_bwd")
     bwd_launches += 1
-    mma_bwd_launches += mma
+    mma_bwd_launches += arg > 0
+    wgmma_bwd_launches += arg == 2
     flops += bwd_flops(B, T, H)
     return dq, dk, dv
 
@@ -362,14 +382,14 @@ def _scale(hidden: int, num_heads: int) -> float:
 
 
 def _route_arg(route: str, tensors) -> int:
-    """The C entry points' ``route`` argument: 1 for the tensor-core
-    kernels, which copy 16 bytes a thread and so need aligned tensors."""
-    if route != "mma":
-        return 0
-    if any(t.data_ptr() % 16 for t in tensors):
+    """The C entry points' ``route`` argument: 0 for the FMA kernels, 1
+    for the ``mma.sync`` ones, 2 for the Hopper ones; the tensor-core
+    kernels copy 16 bytes a thread or by TMA and so need aligned
+    tensors."""
+    if route != "fma" and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("attention: the tensor-core kernels need q, k, v (and do) "
                          "16-byte aligned")
-    return 1
+    return _ROUTES[route]
 
 
 def attention_fwd(q, k, v, mask, num_heads: int, rate: float = 0.0, seed: int = 0):

@@ -45,6 +45,12 @@ HAND_KERNELS = (
     "attention_bwd_mma_kernel",
     "attention_bwd_dq_kernel",
     "attention_bwd_dkdv_kernel",
+    "attention_fwd_tiled_kernel",
+    "attention_bwd_dq_tiled_kernel",
+    "attention_bwd_dkdv_tiled_kernel",
+    "attention_fwd_wgmma_kernel",
+    "attention_bwd_dq_wgmma_kernel",
+    "attention_bwd_dkdv_wgmma_kernel",
     "layernorm_fwd_warp_kernel",
     "layernorm_fwd_block_kernel",
     "_layernorm_bwd_kernel",

@@ -100,33 +100,57 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 
 @pytest.mark.parametrize("dtype,T,d,route", [
     (torch.bfloat16, 1, 64, "mma"), (torch.bfloat16, 77, 64, "mma"), (torch.bfloat16, 128, 64, "mma"),
-    (torch.bfloat16, 129, 64, "mma"), (torch.bfloat16, 512, 64, "mma"),
+    (torch.bfloat16, 129, 64, "wgmma"), (torch.bfloat16, 512, 64, "wgmma"),
     (torch.float32, 1, 64, "fma"), (torch.float32, 77, 64, "fma"), (torch.float32, 128, 64, "fma"),
     (torch.float32, 129, 64, "fma"), (torch.float32, 512, 64, "fma"),
     (torch.bfloat16, 1024, 8, "mma"), (torch.bfloat16, 136, 40, "mma"), (torch.bfloat16, 256, 256, "mma"),
     (torch.bfloat16, 128, 264, "fma"), (torch.bfloat16, 77, 320, "fma"), (torch.float32, 1024, 8, "fma"),
+    (torch.bfloat16, 1, 32, "wgmma"), (torch.bfloat16, 128, 32, "wgmma"), (torch.bfloat16, 1024, 32, "wgmma"),
+    (torch.bfloat16, 77, 128, "wgmma"), (torch.bfloat16, 512, 128, "wgmma"), (torch.float32, 512, 128, "fma"),
+    (torch.bfloat16, 512, 16, "mma"), (torch.bfloat16, 512, 96, "mma"), (torch.bfloat16, 512, 136, "mma"),
 ])
 def test_kernel_route_is_a_rule_on_dtype_and_length(dtype, T, d, route):
-    """Tensor cores for bf16 with a head dim up to 256 at any length; the
-    FMA kernels for f32 (which would mean TF32) and for wider heads. The
-    length no longer enters the rule: it picks only the kernel within the
-    tensor-core route (the whole-head one at d = 64, T <= 128)."""
-    assert attention.kernel_route(dtype, d) == route
+    """The Hopper kernels for bf16 with a head dim of 32, 64 or 128 at every
+    length outside the whole-head kernels' domain (d = 64, T <= 128); the
+    mma.sync kernels for the other bf16 head dims up to 256 and for that
+    domain; the FMA kernels for f32 (which would mean TF32) and for wider
+    heads. Every shape the JAX fused path takes has a route."""
+    assert attention.kernel_route(dtype, d, T) == route
     assert attention.MMA_MAX_HEAD_DIM == 256
     assert attention._route(torch.zeros((1, T, 3 * d), dtype=dtype), 3) == route
+    assert attention._ROUTES[route] == {"fma": 0, "mma": 1, "wgmma": 2}[route]
 
 
-@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 77), (torch.bfloat16, 128), (torch.float32, 129)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 64, 96, 128, 136, 256, 264, 320])
+def test_every_head_dim_and_length_has_one_route(dtype, d):
+    """Over head dims from 8 to past 256 and lengths from 1 to 1024, each
+    shape the JAX fused path takes names exactly one route; the Hopper
+    route takes only d = 32, 64, 128, and none of them has lost its
+    kernel."""
+    for T in (1, 8, 77, 127, 128, 129, 136, 256, 512, 1024):
+        route = attention.kernel_route(dtype, d, T)
+        assert route in attention._ROUTES
+        if route == "wgmma":
+            assert dtype == torch.bfloat16 and d in (32, 64, 128) and (d, T <= 128) != (64, True)
+        elif route == "mma":
+            assert dtype == torch.bfloat16 and d <= 256 and (d not in (32, 64, 128) or (d == 64 and T <= 128))
+        else:
+            assert dtype == torch.float32 or d > 256
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 77), (torch.bfloat16, 128), (torch.float32, 129),
+                                     (torch.bfloat16, 129)])
 def test_cpu_tensor_takes_plain_version_whatever_the_route(dtype, T):
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((2, T, 64)).astype(np.float32)).to(dtype)
                    for _ in range(4))
-    attention.launches = attention.mma_launches = 0
-    attention.bwd_launches = attention.mma_bwd_launches = 0
+    attention.launches = attention.mma_launches = attention.wgmma_launches = 0
+    attention.bwd_launches = attention.mma_bwd_launches = attention.wgmma_bwd_launches = 0
     o, m, l = attention.attention_fwd(q, k, v, None, 1, 0.1, 3)
     grads = attention.attention_bwd(q, k, v, do, None, m, l, 1, 0.1, 3)
-    assert (attention.launches, attention.mma_launches) == (0, 0)
-    assert (attention.bwd_launches, attention.mma_bwd_launches) == (0, 0)
+    assert (attention.launches, attention.mma_launches, attention.wgmma_launches) == (0, 0, 0)
+    assert (attention.bwd_launches, attention.mma_bwd_launches, attention.wgmma_bwd_launches) == (0, 0, 0)
     want = attention.attention_reference(q, k, v, None, 1, 0.1, 3)
     assert all(torch.equal(a, b) for a, b in zip((o, m, l), want))
     want = attention.attention_bwd_reference(q, k, v, do, None, m, l, 1, 0.1, 3)

@@ -2,10 +2,12 @@
 card: the attention forward (CUDA C++) over sequence lengths, with and
 without dropout (keep-rate read back); the attention backward (CUDA C++)
 with and without mask and dropout, both on the route
-``attention.kernel_route`` names (tensor cores for bf16 with a head dim up
-to 256, FMA units otherwise; the counters say which ran); the pair over a
-grid of head dims (8 to 320) and lengths (1 to 1024), masks and rates,
-with the keep-mask's bits read back from both; the
+``attention.kernel_route`` names (the Hopper wgmma kernels for bf16 with
+head dim 32, 64 or 128 outside the whole-head domain, the mma.sync
+kernels for the other bf16 head dims up to 256, FMA units otherwise; the
+counters say which ran); the pair over a grid of head dims (8 to 320)
+and lengths (1 to 1024), masks and rates, with the keep-mask's bits read
+back from both; the Hopper backward run twice to equal bits; the
 LayerNorm forward (CUDA C++, both its routes) and backward (Triton) over
 widths, row counts and dtypes; the ``autograd.Function``s against PyTorch's autograd through the
 plain forwards; the wrappers' launch counts and refusals; the BERT
@@ -228,22 +230,26 @@ def test_attention_kernels_repeat_bit_for_bit(gen, T, dtype):
 
 
 def test_attention_route_is_a_rule_on_dtype_and_length(gen):
-    """bf16 with a head dim up to 256 goes to the tensor-core kernels at
-    any length (up to T = 128 at head dim 64 the whole-head kernels, else
-    the tiled ones), anything else to the FMA kernels; an unaligned view
-    on the tensor-core route raises."""
-    for dtype, T, H, nh, mma in (
-        (torch.bfloat16, 128, 768, 12, 1), (torch.bfloat16, 129, 768, 12, 1), (torch.bfloat16, 1, 768, 12, 1),
-        (torch.float32, 128, 768, 12, 0), (torch.float32, 8, 768, 12, 0),
-        (torch.bfloat16, 600, 768, 3, 1), (torch.bfloat16, 40, 640, 2, 0), (torch.float32, 600, 768, 24, 0),
+    """bf16 with a head dim of 32, 64 or 128 goes to the Hopper kernels
+    outside the whole-head domain (d = 64, T <= 128), which stays on the
+    mma.sync whole-head kernels; the other bf16 head dims up to 256 go to
+    the mma.sync tiled kernels at any length, anything else to the FMA
+    kernels; an unaligned view on a tensor-core route raises."""
+    for dtype, T, H, nh, mma, wgmma in (
+        (torch.bfloat16, 128, 768, 12, 1, 0), (torch.bfloat16, 129, 768, 12, 1, 1),
+        (torch.bfloat16, 1, 768, 12, 1, 0), (torch.bfloat16, 1, 768, 24, 1, 1),
+        (torch.float32, 128, 768, 12, 0, 0), (torch.float32, 8, 768, 12, 0, 0),
+        (torch.bfloat16, 600, 768, 3, 1, 0), (torch.bfloat16, 40, 640, 2, 0, 0), (torch.float32, 600, 768, 24, 0, 0),
+        (torch.bfloat16, 600, 768, 6, 1, 1), (torch.bfloat16, 77, 768, 8, 1, 0),
     ):
         q = torch.randn((2, T, H), generator=gen, device="cuda").to(dtype)
-        attention.launches = attention.mma_launches = 0
-        attention.bwd_launches = attention.mma_bwd_launches = 0
+        attention.launches = attention.mma_launches = attention.wgmma_launches = 0
+        attention.bwd_launches = attention.mma_bwd_launches = attention.wgmma_bwd_launches = 0
         _, m, l = attention.attention_fwd(q, q, q, None, nh)
         attention.attention_bwd(q, q, q, q, None, m, l, nh)
         assert (attention.launches, attention.bwd_launches) == (1, 1)
         assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma), (dtype, T, H, nh)
+        assert (attention.wgmma_launches, attention.wgmma_bwd_launches) == (wgmma, wgmma), (dtype, T, H, nh)
     H, nh = 768, 12
     flat = torch.zeros(2 * 16 * H + 1, dtype=torch.bfloat16, device="cuda")
     odd = flat[1:].view(2, 16, H)  # contiguous, 2 bytes off a 16-byte boundary
@@ -296,18 +302,22 @@ def test_attention_pair_over_head_dims_and_lengths(gen, dtype, d, T):
     rows and a fully masked row, at rate 0 and 0.1; the keep bits read
     back from both kernels equal the plain version's."""
     B, nh = 3, 2
-    route = attention.kernel_route(dtype, d)
+    route = attention.kernel_route(dtype, d, T)
+    if dtype == torch.bfloat16 and d in (32, 64, 128) and (d, T) not in ((64, 1), (64, 77), (64, 128)):
+        assert route == "wgmma"
     q, k, v, do = (torch.randn((B, T, nh * d), generator=gen, device="cuda").to(dtype) for _ in range(4))
     for kind in (None, "ragged", "fully_masked_row"):
         mask = _grid_mask(kind, B, T)
         for rate in (0.0, 0.1):
             attention.launches = attention.mma_launches = attention.bwd_launches = attention.mma_bwd_launches = 0
+            attention.wgmma_launches = attention.wgmma_bwd_launches = 0
             o, m, l = attention.attention_fwd(q, k, v, mask, nh, rate, 21)
             grads = attention.attention_bwd(q, k, v, do, mask, m, l, nh, rate, 21)
             torch.cuda.synchronize()
-            mma = int(route == "mma")
+            mma, wgmma = int(route != "fma"), int(route == "wgmma")
             assert (attention.launches, attention.bwd_launches) == (1, 1)
             assert (attention.mma_launches, attention.mma_bwd_launches) == (mma, mma)
+            assert (attention.wgmma_launches, attention.wgmma_bwd_launches) == (wgmma, wgmma)
             ro, rm, rl = attention.attention_reference(q, k, v, mask, nh, rate, 21)
             where = f"{dtype} d {d} T {T} mask {kind} rate {rate}"
             torch.testing.assert_close(o.float(), ro.float(), msg=f"o {where}", **OUT_TOL[dtype])
@@ -320,6 +330,27 @@ def test_attention_pair_over_head_dims_and_lengths(gen, dtype, d, T):
     keep = attention.keep_mask(B, nh, T, 21, 0.1, "cuda")
     n = min(T, d)
     assert torch.equal(fwd, keep[..., :n]) and torch.equal(bwd, keep[..., :n, :])
+
+
+@pytest.mark.parametrize("T,H,nh", [(512, 768, 12), (128, 768, 24), (136, 768, 6), (77, 768, 24)])
+def test_hopper_attention_backward_repeats_bit_for_bit(gen, T, H, nh):
+    """The Hopper pair sums dq inside one block in a fixed order, with no
+    atomics: two backward runs on the same inputs give equal bits, with a
+    ragged mask and dropout on, at head dims 64, 32 and 128."""
+    B = 3
+    q, k, v, do = (torch.randn((B, T, H), generator=gen, device="cuda").bfloat16() for _ in range(4))
+    mask = _grid_mask("ragged", B, T)
+    attention.wgmma_launches = attention.wgmma_bwd_launches = 0
+    _, m, l = attention.attention_fwd(q, k, v, mask, nh, 0.1, 8)
+    first = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, 8)
+    again = attention.attention_bwd(q, k, v, do, mask, m, l, nh, 0.1, 8)
+    torch.cuda.synchronize()
+    assert (attention.wgmma_launches, attention.wgmma_bwd_launches) == (1, 2)
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+    want = attention.attention_bwd_reference(q, k, v, do, mask, m, l, nh, 0.1, 8)
+    for name, g, w in zip(("dq", "dk", "dv"), first, want):
+        torch.testing.assert_close(g.float(), w.float(), msg=name, **GRAD_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),

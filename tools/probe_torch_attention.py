@@ -12,11 +12,27 @@ the repository root:
    a time that follows the block count and not the products says the
    kernels are not bound by their products. A plain copy of one tensor
    stands beside them as the card's memory rate that day.
-2. The static instruction mix of the two tensor-core kernels, from
-   ``cuobjdump -sass`` on the built libraries: HMMA (tensor-core
-   products), LDSM (``ldmatrix``), MUFU (``exp``, reciprocal) and the rest.
+2. The static instruction mix of the tensor-core kernels (the
+   ``mma.sync`` whole-head and tiled ones, the Hopper ``wgmma`` ones),
+   from ``cuobjdump -sass`` on the built libraries: HGMMA (``wgmma``),
+   UTMALDG (TMA tile loads), SYNCS (``mbarrier`` operations), HMMA
+   (``mma.sync``), LDSM (``ldmatrix``), MUFU (``exp``, reciprocal), and
+   the most frequent of the rest.
 
     python3 tools/probe_torch_attention.py --times [--out FILE]
+    python3 tools/probe_torch_attention.py --mix    # the instruction mix alone
+    python3 tools/probe_torch_attention.py --ablate [--out FILE]
+
+``--ablate`` builds the Hopper forward (``attention_fwd_wgmma_kernel``)
+again with parts of its work cut out, each variant in a copy of the
+package under ``build/probe_ablate/`` (its source edited, then built by
+its own ``nvcc``, all at once), and times each against the kernel as it
+is at (256, 512, 768) with 12 heads, (256, 128, 768) with 24 and with 6,
+rate 0 and 0.1, an all-kept mask: ``loads`` keeps only the copies and
+the barriers (no product, no max, no exp, no P V), ``no_pass1`` drops
+pass 1's products and max, ``no_exp`` the exp of pass 2, ``no_pv`` the
+P V products. A variant's outputs are wrong by design; only its time is
+read, to say which part of the work the kernel's time follows.
 
 instead times the forward and backward wrappers at the shapes of
 ``TIMED`` (bf16, a ragged mask, dropout rate 0.1 and 0): CUDA events
@@ -24,9 +40,11 @@ around back-to-back calls, ``torch.profiler`` device time per call, the
 plain versions, ``F.scaled_dot_product_attention`` and its autograd
 backward at rate 0 (a yardstick; the port never calls it), the bound
 (max of bytes over 3.35 TB/s and FLOPs over 989.4 TFLOP/s) and which route
-the wrapper took; a shape the wrappers refuse is reported as such. Each
-reading is printed and, with ``--out``, written as one JSON object a
-line.
+the wrapper took (its counters read); where that is the Hopper route,
+also the ``mma.sync`` tiled kernels at the same shape through the C
+entry points' route argument (``tiled_*``). A shape the wrappers refuse
+is reported as such. Each reading is printed and, with ``--out``,
+written as one JSON object a line.
 
 Prints the card's name and power limit first, as every number needs them
 beside it.
@@ -139,6 +157,7 @@ def timed_shapes(attention, out) -> None:
             row = {"shape": [B, T, H], "heads": heads, "head_dim": d, "dtype": "bf16", "rate": rate}
             try:
                 attention.mma_launches = attention.mma_bwd_launches = 0
+                attention.wgmma_launches = attention.wgmma_bwd_launches = 0
                 _, m, l = attention.attention_fwd(q, k, v, mask, heads, rate, 7)
                 attention.attention_bwd(q, k, v, do, mask, m, l, heads, rate, 7)
                 torch.cuda.synchronize()
@@ -147,14 +166,20 @@ def timed_shapes(attention, out) -> None:
                 print(json.dumps(row), flush=True)
                 out.append(row)
                 continue
-            row["route"] = "mma" if attention.mma_launches else "fma"
-            row["bwd_route"] = "mma" if attention.mma_bwd_launches else "fma"
+            row["route"], row["bwd_route"] = (
+                "wgmma" if wgmma else "mma" if mma else "fma"
+                for mma, wgmma in ((attention.mma_launches, attention.wgmma_launches),
+                                   (attention.mma_bwd_launches, attention.wgmma_bwd_launches)))
+            drop = attention._dropout_args(rate, 7)
             fns = {
                 "fwd": lambda: attention.attention_fwd(q, k, v, mask, heads, rate, 7),
                 "bwd": lambda: attention.attention_bwd(q, k, v, do, mask, m, l, heads, rate, 7),
                 "plain_fwd": lambda: attention.attention_reference(q, k, v, mask, heads, rate, 7),
                 "plain_bwd": lambda: attention.attention_bwd_reference(q, k, v, do, mask, m, l, heads, rate, 7),
             }
+            if row["route"] == "wgmma":
+                fns["tiled_fwd"] = lambda: attention._launch_fwd(q, k, v, mask, heads, drop, "mma")
+                fns["tiled_bwd"] = lambda: attention._launch_bwd(q, k, v, do, mask, m, l, heads, drop, "mma")
             if rate == 0.0:
                 qh, kh, vh = (heads_of(t).detach().requires_grad_(True) for t in (q, k, v))
                 o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)
@@ -164,7 +189,7 @@ def timed_shapes(attention, out) -> None:
                 first = cuda_ms(fn, warmup=1, calls=1)  # a slow route gets fewer calls
                 calls = max(2, min(20, int(200 / max(first, 1e-3))))
                 row[f"{name}_ms"] = cuda_ms(fn, warmup=1, calls=calls)
-                if name in ("fwd", "bwd"):
+                if name in ("fwd", "bwd", "tiled_fwd", "tiled_bwd"):
                     row[f"{name}_device_ms"] = device_ms(fn, calls)
             for which in ("fwd", "bwd"):
                 row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = bound_ms(B, T, H, heads, which == "bwd")
@@ -192,9 +217,98 @@ def instruction_mix(_build) -> None:
             if op and function:
                 counts[function][op.group(1)] += 1
         for function, mix in counts.items():
-            if "mma_kernel" in function:
-                top = ", ".join(f"{op} {n}" for op, n in mix.most_common(16))
-                print(f"{name}_mma_kernel: {sum(mix.values())} instructions; {top}")
+            kernel = re.search(r"(?<=\d)attention_[a-z_]+?_(?:mma|tiled|wgmma)_kernel(?:I(?:Li\d+E)+E)?", function)
+            if kernel:
+                named = ", ".join(f"{op} {mix[op]}" for op in ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDSM", "MUFU"))
+                rest = ", ".join(f"{op} {n}" for op, n in mix.most_common(12) if op not in named)
+                print(f"{name}: {kernel.group(0)}: {sum(mix.values())} instructions; {named}; {rest}")
+
+
+# the edits of each ``--ablate`` variant to csrc/attention_fwd.cu, as
+# (text, replacement) pairs; each text must be in the source as it is
+_PASS1 = """      float s[kSlabs][kN / 8][4];
+      scores(s);
+      sm90::turn_pass(wg);
+      const Columns cols = sm90::read_tile_bits(bits + 4 * stage, lane);
+      sm90::bar_arrive_warp(empty + stage);
+#pragma unroll
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::tile_row_max<kN>(s[sl], cols, scale, m0[sl], m1[sl]);"""
+_NO_PASS1 = """      sm90::turn_wait(wg);
+      sm90::turn_pass(wg);
+      sm90::bar_arrive_warp(empty + stage);
+      for (int sl = 0; sl < kSlabs; ++sl) m0[sl] = m1[sl] = 0.f;"""
+_PASS2 = """      float s[kSlabs][kN / 8][4];
+      scores(s);"""
+_NO_PASS2 = """      float s[kSlabs][kN / 8][4];
+      for (int sl = 0; sl < kSlabs; ++sl) sm90::zero(s[sl]);
+      sm90::turn_wait(wg);"""
+_EXP = ("      for (int sl = 0; sl < kSlabs; ++sl) sm90::tile_exp<kN>(s[sl], cols, sl2e, ml0[sl], ml1[sl], mb0[sl], "
+        "mb1[sl]);\n")
+_PV = "          sm90::Wgmma<kD>::rs(acc[sl], p[sl][k], L::template mnmajor<kN>(v_tiles + stage * kTile, k), 1);\n"
+ABLATIONS = {
+    "kernel": [],
+    "loads": [(_PASS1, _NO_PASS1), (_PASS2, _NO_PASS2), (_EXP, ""), (_PV, "")],
+    "no_pass1": [(_PASS1, _NO_PASS1)],
+    "no_exp": [(_EXP, "")],
+    "no_pv": [(_PV, "")],
+}
+ABLATE_SHAPES = ((256, 512, 768, 12), (256, 128, 768, 24), (256, 128, 768, 6))
+
+_ABLATE_TIMER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from imagegenerator_tpu_torch.ops.kernels import attention
+sys.path.insert(0, sys.argv[2])
+from probe_torch_attention import ABLATE_SHAPES, cuda_ms
+gen = torch.Generator(device="cuda").manual_seed(0)
+for B, T, H, heads in ABLATE_SHAPES:
+    q, k, v = (torch.randn((B, T, H), generator=gen, device="cuda").bfloat16() for _ in range(3))
+    mask = torch.ones((B, T), dtype=torch.int32, device="cuda")
+    for rate in (0.0, 0.1):
+        drop = attention._dropout_args(rate, 7)
+        ms = cuda_ms(lambda: attention._launch_fwd(q, k, v, mask, heads, drop, "wgmma"), warmup=3, calls=20)
+        print(json.dumps({"shape": [B, T, H], "heads": heads, "rate": rate, "ms": ms}), flush=True)
+"""
+
+
+def ablate(out) -> None:
+    """Build the Hopper forward's ablations side by side and time them
+    (``--ablate``)."""
+    import os
+
+    root = Path(__file__).resolve().parents[1]
+    work = root / "build" / "probe_ablate"
+    source = (root / "imagegenerator_tpu_torch" / "csrc" / "attention_fwd.cu").read_text()
+    builds = {}
+    for name, edits in ABLATIONS.items():
+        copy = work / name
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(root / "imagegenerator_tpu_torch", copy / "imagegenerator_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"--ablate {name}: the forward's source no longer has {old[:60]!r}")
+            text = text.replace(old, new)
+        (copy / "imagegenerator_tpu_torch" / "csrc" / "attention_fwd.cu").write_text(text)
+        code = (f"import sys; sys.path.insert(0, {str(copy)!r}); "
+                "from imagegenerator_tpu_torch.ops.kernels import _build; _build.library('attention_fwd')")
+        builds[name] = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+    for name, proc in builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"--ablate {name}: the build failed:\n{log[-4000:]}")
+    for name in ABLATIONS:
+        run = subprocess.run([sys.executable, "-c", _ABLATE_TIMER, str(work / name), str(Path(__file__).parent)],
+                             capture_output=True, text=True, timeout=600, env=dict(os.environ))
+        if run.returncode:
+            raise SystemExit(f"--ablate {name}: the timing failed:\n{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            row = {"variant": name, **json.loads(line)}
+            print(json.dumps(row), flush=True)
+            out.append(row)
 
 
 def main() -> int:
@@ -202,7 +316,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--times", action="store_true", help="time the wrappers at TIMED instead")
-    parser.add_argument("--out", default=None, help="with --times: write the readings here, a line each")
+    parser.add_argument("--out", default=None, help="with --times or --ablate: write the readings here, a line each")
+    parser.add_argument("--mix", action="store_true", help="print the instruction mix alone")
+    parser.add_argument("--ablate", action="store_true",
+                        help="time the Hopper forward with parts of its work cut out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_attention: no CUDA device", file=sys.stderr)
@@ -211,7 +328,17 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.ablate:
+        readings = []
+        ablate(readings)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in readings))
+        return 0
     _build.build_all()
+    if args.mix:
+        instruction_mix(_build)
+        return 0
     if args.times:
         readings = []
         timed_shapes(attention, readings)
