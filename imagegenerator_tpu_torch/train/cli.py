@@ -28,7 +28,15 @@ gloo), ``--device cpu`` on the CPU (gloo). Rank 0 writes checkpoints and
 metrics; every rank resumes.
 
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of the training
-loop, one file per rank (``utils/profiling.py``).
+loop, one file per rank (``utils/profiling.py``). Its spans name the
+loop's phases: ``data`` (the wait for the loader's next batch) and
+``train_step``, inside which ``text`` (the encoder's forward),
+``critic`` (each of the ``n_critic`` iterations), ``generator``,
+``text_backward`` (stage 1: the encoder's backward) and ``optimizer``
+(each update). Each kernel on the card belongs to the span in which it
+was launched, found by its launch's ``correlation``: so the trace reads
+how a step's card time divides between the phases, and whether the card
+waits for data.
 
 Tensor parallelism (stage 1), over the ranks torchrun starts::
 

@@ -28,7 +28,16 @@ Order of work in a step (JAX ``train_step``):
      the updated critic (a full critic forward in training mode, which
      updates its BN once more): ``loss = -mean(s_fake) + kl``. Its
      gradients are taken with ``torch.autograd.grad`` on the generator
-     side's parameters alone, so nothing of it reaches the critic.
+     side's parameters alone, so nothing of it reaches the critic: first
+     CA's and G1's with the text embedding's, then from that the
+     encoder's and projection's (the same gradients as one call over
+     all of them, bit for bit; the trace then shows the encoder's
+     backward on its own, as ``text_backward``).
+
+The step's phases are named in a running profiler's trace
+(``utils/profiling.py::span``): ``train_step`` around it all, ``text``
+(each text forward), ``critic`` (each iteration), ``generator``,
+``text_backward`` and ``optimizer`` (each update).
 
 Noise comes from ``generator`` on the device in a fixed order: the
 permutation, then per iteration (ca_eps, z, gp_eps), with the dropout
@@ -91,6 +100,7 @@ from imagegenerator_tpu_torch.ops.remat import remat as remat_fn
 from imagegenerator_tpu_torch.parallel import tp as tp_ops
 from imagegenerator_tpu_torch.train import losses, schedules
 from imagegenerator_tpu_torch.utils.device import entry_device
+from imagegenerator_tpu_torch.utils.profiling import span
 
 MODULES = ("encoder", "projection", "con_augment", "generator", "critic")
 GEN_SIDE = ("encoder", "projection", "con_augment", "generator")
@@ -253,8 +263,9 @@ class Stage1System(nn.Module):
         c = self.config
         step_size = c.sched_step * (c.n_critic if name == "critic" else 1)
         opt = self.optimizers[name]
-        schedules.set_lr(opt, self._base_lr(name), step_size, c.sched_gamma)
-        opt.step()
+        with span("optimizer"):
+            schedules.set_lr(opt, self._base_lr(name), step_size, c.sched_gamma)
+            opt.step()
 
     def encode_text(self, tokens, mask, deterministic=True, generator=None,
                     host_generator=None, draws=None, remat=False):
@@ -311,109 +322,121 @@ class Stage1System(nn.Module):
         generator loss and its KL term. ``reduce(tensors)``, where given,
         averages a list of tensors over the data-parallel ranks in place
         (on a grid: over the data group)."""
-        c = self.config
-        reduce = reduce or (lambda tensors: None)
-        noise = noise or {}
-        tokens, mask, real = batch["input_ids"], batch["attention_mask"], batch["image"]
-        if real.dtype == torch.uint8:
-            real = real.float() * (2.0 / 255.0) - 1.0
-        bsz, dev = tokens.shape[0], tokens.device
-        grid = self.grid
-        data, d = (grid.data, grid.data_index) if grid is not None else (1, 0)
-        group = grid.data_group if grid is not None else None
-        B = bsz * data  # the global batch
-        mine = slice(d * bsz, (d + 1) * bsz)  # this data index's rows of it
-        gather = lambda t: tp_ops.all_gather_rows(t, group, d, data)
-        tokens_all, mask_all = (tokens, mask) if data == 1 else (gather(tokens), gather(mask))
+        with span("train_step"):
+            c = self.config
+            reduce = reduce or (lambda tensors: None)
+            noise = noise or {}
+            tokens, mask, real = batch["input_ids"], batch["attention_mask"], batch["image"]
+            if real.dtype == torch.uint8:
+                real = real.float() * (2.0 / 255.0) - 1.0
+            bsz, dev = tokens.shape[0], tokens.device
+            grid = self.grid
+            data, d = (grid.data, grid.data_index) if grid is not None else (1, 0)
+            group = grid.data_group if grid is not None else None
+            B = bsz * data  # the global batch
+            mine = slice(d * bsz, (d + 1) * bsz)  # this data index's rows of it
+            gather = lambda t: tp_ops.all_gather_rows(t, group, d, data)
+            tokens_all, mask_all = (tokens, mask) if data == 1 else (gather(tokens), gather(mask))
 
-        def draw(name, i, fn):
-            # each draw is the global batch's; a data index keeps its rows
-            t = noise[name][i] if name in noise else fn()
-            return t if data == 1 else t[mine]
+            def draw(name, i, fn):
+                # each draw is the global batch's; a data index keeps its rows
+                t = noise[name][i] if name in noise else fn()
+                return t if data == 1 else t[mine]
 
-        perm = noise.get("perm")
-        if perm is None:
-            perm = torch.randperm(B, generator=generator, device=dev)
-        seeds = iter(noise["attn_seeds"]) if "attn_seeds" in noise else host_generator
-        reuse_mis = c.text_reuse_mismatched
-        if reuse_mis is None:
-            reuse_mis = not c.text_dropout  # exact when dropout is off
+            perm = noise.get("perm")
+            if perm is None:
+                perm = torch.randperm(B, generator=generator, device=dev)
+            seeds = iter(noise["attn_seeds"]) if "attn_seeds" in noise else host_generator
+            reuse_mis = c.text_reuse_mismatched
+            if reuse_mis is None:
+                reuse_mis = not c.text_dropout  # exact when dropout is off
 
-        def text(ids, ids_mask, predrawn=None):
-            """The text forward over the global batch ``ids``: this data
-            index encodes its contiguous share and the embeddings of all
-            rows are gathered back; ``predrawn`` replays its dropout."""
-            n = ids.shape[0] // data
-            share = slice(d * n, (d + 1) * n)
-            rows = None if data == 1 else (d * n, ids.shape[0])
-            ids, ids_mask = ids[share], ids_mask[share]
-            if predrawn is None and c.remat and c.text_dropout:
-                predrawn = self.encoder.draw(n * data, ids.shape[1], dev, generator, seeds)
-            draws = Draws(generator, seeds, rows=rows) if predrawn is None else predrawn.draws(rows)
-            tem = self.encode_text(ids, ids_mask, not c.text_dropout, draws=draws, remat=c.remat)
-            return tem if data == 1 else gather(tem)
+            def text(ids, ids_mask, predrawn=None):
+                """The text forward over the global batch ``ids``: this data
+                index encodes its contiguous share and the embeddings of all
+                rows are gathered back; ``predrawn`` replays its dropout."""
+                with span("text"):
+                    n = ids.shape[0] // data
+                    share = slice(d * n, (d + 1) * n)
+                    rows = None if data == 1 else (d * n, ids.shape[0])
+                    ids, ids_mask = ids[share], ids_mask[share]
+                    if predrawn is None and c.remat and c.text_dropout:
+                        predrawn = self.encoder.draw(n * data, ids.shape[1], dev, generator, seeds)
+                    draws = Draws(generator, seeds, rows=rows) if predrawn is None else predrawn.draws(rows)
+                    tem = self.encode_text(ids, ids_mask, not c.text_dropout, draws=draws, remat=c.remat)
+                    return tem if data == 1 else gather(tem)
 
-        def text_both():
-            tem_2b = text(torch.cat([tokens_all, tokens_all[perm]]), torch.cat([mask_all, mask_all[perm]]),
-                          replayed)
-            return tem_2b[:B][mine], tem_2b[B:][mine]
+            def text_both():
+                tem_2b = text(torch.cat([tokens_all, tokens_all[perm]]),
+                              torch.cat([mask_all, mask_all[perm]]), replayed)
+                return tem_2b[:B][mine], tem_2b[B:][mine]
 
-        replayed = None
-        if "text_masks" in noise:
-            if c.text_resample_per_iter:
-                raise ValueError("noise['text_masks'] replays the hoisted text forward only")
-            replayed = Predrawn(list(noise["text_masks"]), list(noise.get("attn_seeds", ())))
-
-        self.train()
-        try:
-            tems = None
-            if not c.text_resample_per_iter:
-                if reuse_mis:
-                    tem_all = text(tokens_all, mask_all, replayed)
-                    tems = (tem_all[mine], tem_all[perm][mine])
-                else:
-                    tems = text_both()
-            for i in range(c.n_critic):
+            replayed = None
+            if "text_masks" in noise:
                 if c.text_resample_per_iter:
-                    # the last iteration's forward keeps its graph for the
-                    # generator step
-                    with torch.set_grad_enabled(i == c.n_critic - 1):
-                        tems = text_both()
-                tem, tem_mis = (t.detach() for t in tems)
-                ca_eps = draw("ca_eps", i, lambda: torch.randn(
-                    (B, c.c_dim), generator=generator, device=dev))
-                z = draw("z", i, lambda: torch.randn(
-                    (B, c.z_dim), generator=generator, device=dev))
-                gp_eps = draw("gp_eps", i, lambda: torch.rand(
-                    (B, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
-                with torch.no_grad():
-                    fake = self._gen_forward(tem, ca_eps, z)[0]
-                loss_critic, gp = self._critic_update(real, fake, tem, tem_mis, gp_eps, reduce)
+                    raise ValueError("noise['text_masks'] replays the hoisted text forward only")
+                replayed = Predrawn(list(noise["text_masks"]), list(noise.get("attn_seeds", ())))
 
-            # generator side, with the last iteration's CA and z noise
-            tem = tems[0]
-            fake, mu, sigma = self._gen_forward(tem, ca_eps, z)
-            s_fake = (remat_fn(self.critic, fake, tem) if c.remat else self.critic(fake, tem))
-            s_fake = s_fake.reshape(-1).float()
-            kl = losses.kl_term(mu, sigma, c.kl_mode)
-            if data > 1:
-                kl = kl * data  # a sum over rows: the data group's average is the global sum
-            loss_gen = losses.wgan_generator_loss(s_fake) + kl
-            params = [p for name in GEN_SIDE for p in getattr(self, name).parameters()]
-            grads = torch.autograd.grad(loss_gen, params)
-            reduce(list(grads))
-            for p, g in zip(params, grads):
-                p.grad = g
-            for name in GEN_SIDE:
-                self._update(name)
-        finally:
-            self.eval()
-        self.step += 1
-        metrics = {
-            "loss_critic": loss_critic,
-            "loss_gen": loss_gen.detach().clone(),
-            "gp": gp,
-            "kl": kl.detach().clone(),
-        }
-        reduce(list(metrics.values()))
-        return metrics
+            self.train()
+            try:
+                tems = None
+                if not c.text_resample_per_iter:
+                    if reuse_mis:
+                        tem_all = text(tokens_all, mask_all, replayed)
+                        tems = (tem_all[mine], tem_all[perm][mine])
+                    else:
+                        tems = text_both()
+                for i in range(c.n_critic):
+                    with span("critic"):
+                        if c.text_resample_per_iter:
+                            # the last iteration's forward keeps its graph for the
+                            # generator step
+                            with torch.set_grad_enabled(i == c.n_critic - 1):
+                                tems = text_both()
+                        tem, tem_mis = (t.detach() for t in tems)
+                        ca_eps = draw("ca_eps", i, lambda: torch.randn(
+                            (B, c.c_dim), generator=generator, device=dev))
+                        z = draw("z", i, lambda: torch.randn(
+                            (B, c.z_dim), generator=generator, device=dev))
+                        gp_eps = draw("gp_eps", i, lambda: torch.rand(
+                            (B, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
+                        with torch.no_grad():
+                            fake = self._gen_forward(tem, ca_eps, z)[0]
+                        loss_critic, gp = self._critic_update(
+                            real, fake, tem, tem_mis, gp_eps, reduce)
+
+                # generator side, with the last iteration's CA and z noise
+                tem = tems[0]
+                params_of = lambda *names: [p for n in names for p in getattr(self, n).parameters()]
+                text_params = params_of("encoder", "projection")
+                gan_params = params_of("con_augment", "generator")
+                with span("generator"):
+                    fake, mu, sigma = self._gen_forward(tem, ca_eps, z)
+                    s_fake = (remat_fn(self.critic, fake, tem) if c.remat else self.critic(fake, tem))
+                    s_fake = s_fake.reshape(-1).float()
+                    kl = losses.kl_term(mu, sigma, c.kl_mode)
+                    if data > 1:
+                        kl = kl * data  # a sum over rows: the data group's average is the global sum
+                    loss_gen = losses.wgan_generator_loss(s_fake) + kl
+                    # down to the text embedding only: the encoder's nodes
+                    # are left to the next call, with their saved tensors
+                    *gan_grads, g_tem = torch.autograd.grad(loss_gen, gan_params + [tem])
+                with span("text_backward"):
+                    text_grads = torch.autograd.grad(tem, text_params, grad_outputs=g_tem)
+                params, grads = text_params + gan_params, [*text_grads, *gan_grads]  # GEN_SIDE's order
+                reduce(grads)
+                for p, g in zip(params, grads):
+                    p.grad = g
+                for name in GEN_SIDE:
+                    self._update(name)
+            finally:
+                self.eval()
+            self.step += 1
+            metrics = {
+                "loss_critic": loss_critic,
+                "loss_gen": loss_gen.detach().clone(),
+                "gp": gp,
+                "kl": kl.detach().clone(),
+            }
+            reduce(list(metrics.values()))
+            return metrics

@@ -45,6 +45,12 @@ the four metrics. BatchNorm statistics stay per rank.
 GP's interpolation) and its full forward in the generator step; the
 recomputation leaves the critic's BatchNorm statistics alone.
 ``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
+
+The step's phases are named in a running profiler's trace
+(``utils/profiling.py::span``), as in stage 1: ``train_step``, ``text``
+(the frozen encoder's forward, where the batch brings tokens),
+``critic`` (each iteration), ``generator`` and ``optimizer`` (each
+update).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from imagegenerator_tpu_torch.ops.remat import remat
 from imagegenerator_tpu_torch.train import losses, schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1Config, critic_loss
 from imagegenerator_tpu_torch.utils.device import entry_device
+from imagegenerator_tpu_torch.utils.profiling import span
 
 # the JAX state's names of the trained modules -> the system's attributes
 TRAINED = {"con_augment_2": "con_augment_2", "generator": "gen_2", "critic": "critic_2"}
@@ -220,8 +227,9 @@ class Stage2System(nn.Module):
         c = self.config
         step_size = c.sched_step * (c.n_critic if name == "critic" else 1)
         opt = self.optimizers[name]
-        schedules.set_lr(opt, c.lr, step_size, c.sched_gamma)
-        opt.step()
+        with span("optimizer"):
+            schedules.set_lr(opt, c.lr, step_size, c.sched_gamma)
+            opt.step()
 
     def load_stage1(self, stage1_system) -> None:
         """Take the frozen stack from a trained ``Stage1System``: its
@@ -277,69 +285,73 @@ class Stage2System(nn.Module):
         0-d tensors: the last critic iteration's loss and penalty, the
         generator loss and its KL term. ``reduce(tensors)``, where given,
         averages a list of tensors over the data-parallel ranks in place."""
-        c = self.config
-        reduce = reduce or (lambda tensors: None)
-        noise = noise or {}
-        real = batch["image"]
-        if real.dtype == torch.uint8:
-            real = real.float() * (2.0 / 255.0) - 1.0
-        bsz, dev = real.shape[0], real.device
+        with span("train_step"):
+            c = self.config
+            reduce = reduce or (lambda tensors: None)
+            noise = noise or {}
+            real = batch["image"]
+            if real.dtype == torch.uint8:
+                real = real.float() * (2.0 / 255.0) - 1.0
+            bsz, dev = real.shape[0], real.device
 
-        def draw(name, i, fn, shape, **kw):
-            if name in noise:
-                return noise[name][i]
-            return fn(shape, generator=generator, device=dev, **kw)
+            def draw(name, i, fn, shape, **kw):
+                if name in noise:
+                    return noise[name][i]
+                return fn(shape, generator=generator, device=dev, **kw)
 
-        perm = noise.get("perm")
-        if perm is None:
-            perm = torch.randperm(bsz, generator=generator, device=dev)
-        with torch.no_grad():
-            if "tem" in batch:
-                tem = batch["tem"].float()
-            else:
-                tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
-            tem_mis = tem[perm]
+            perm = noise.get("perm")
+            if perm is None:
+                perm = torch.randperm(bsz, generator=generator, device=dev)
+            with torch.no_grad():
+                if "tem" in batch:
+                    tem = batch["tem"].float()
+                else:
+                    with span("text"):
+                        tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
+                tem_mis = tem[perm]
 
-        for attr in TRAINED.values():
-            getattr(self, attr).train()
-        try:
-            for i in range(c.n_critic):
-                frozen = {"ca1_eps": draw("ca1_eps", i, torch.randn, (bsz, c.c_dim)),
-                          "z": draw("z", i, torch.randn, (bsz, c.z_dim))}
-                ca2_eps = draw("ca2_eps", i, torch.randn, (bsz, c.c_dim))
-                gp_eps = draw("gp_eps", i, torch.rand, (bsz, 1, 1, 1), dtype=real.dtype)
-                with torch.no_grad():
-                    fake_64 = self._frozen_64_from_tem(tem, None, frozen)
-                    fake_256 = self._gen2_forward(fake_64, tem, ca2_eps)[0]
-                loss_critic, gp = critic_loss(
-                    self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp, c.remat
-                )
-                self.optimizers["critic"].zero_grad(set_to_none=True)
-                loss_critic.backward()
-                reduce([p.grad for p in self.critic_2.parameters()])
-                self._update("critic")
+            for attr in TRAINED.values():
+                getattr(self, attr).train()
+            try:
+                for i in range(c.n_critic):
+                    with span("critic"):
+                        frozen = {"ca1_eps": draw("ca1_eps", i, torch.randn, (bsz, c.c_dim)),
+                                  "z": draw("z", i, torch.randn, (bsz, c.z_dim))}
+                        ca2_eps = draw("ca2_eps", i, torch.randn, (bsz, c.c_dim))
+                        gp_eps = draw("gp_eps", i, torch.rand, (bsz, 1, 1, 1), dtype=real.dtype)
+                        with torch.no_grad():
+                            fake_64 = self._frozen_64_from_tem(tem, None, frozen)
+                            fake_256 = self._gen2_forward(fake_64, tem, ca2_eps)[0]
+                        loss_critic, gp = critic_loss(
+                            self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp, c.remat
+                        )
+                        self.optimizers["critic"].zero_grad(set_to_none=True)
+                        loss_critic.backward()
+                        reduce([p.grad for p in self.critic_2.parameters()])
+                        self._update("critic")
 
-            # generator side, with the last iteration's noise and 64 px images
-            fake_256, mu2, sigma2 = self._gen2_forward(fake_64, tem, ca2_eps)
-            s_fake = remat(self.critic_2, fake_256, tem) if c.remat else self.critic_2(fake_256, tem)
-            s_fake = s_fake.reshape(-1).float()
-            kl = losses.kl_term(mu2, sigma2, c.kl_mode)
-            loss_gen = losses.wgan_generator_loss(s_fake) + kl
-            params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]
-            grads = torch.autograd.grad(loss_gen, params)
-            reduce(list(grads))
-            for p, g in zip(params, grads):
-                p.grad = g
-            for name in GEN_SIDE:
-                self._update(name)
-        finally:
-            self.eval()
-        self.step += 1
-        metrics = {
-            "loss_critic": loss_critic.detach().clone(),
-            "loss_gen": loss_gen.detach().clone(),
-            "gp": gp.detach().clone(),
-            "kl": kl.detach().clone(),
-        }
-        reduce(list(metrics.values()))
-        return metrics
+                # generator side, with the last iteration's noise and 64 px images
+                params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]
+                with span("generator"):
+                    fake_256, mu2, sigma2 = self._gen2_forward(fake_64, tem, ca2_eps)
+                    s_fake = remat(self.critic_2, fake_256, tem) if c.remat else self.critic_2(fake_256, tem)
+                    s_fake = s_fake.reshape(-1).float()
+                    kl = losses.kl_term(mu2, sigma2, c.kl_mode)
+                    loss_gen = losses.wgan_generator_loss(s_fake) + kl
+                    grads = torch.autograd.grad(loss_gen, params)
+                reduce(list(grads))
+                for p, g in zip(params, grads):
+                    p.grad = g
+                for name in GEN_SIDE:
+                    self._update(name)
+            finally:
+                self.eval()
+            self.step += 1
+            metrics = {
+                "loss_critic": loss_critic.detach().clone(),
+                "loss_gen": loss_gen.detach().clone(),
+                "gp": gp.detach().clone(),
+                "kl": kl.detach().clone(),
+            }
+            reduce(list(metrics.values()))
+            return metrics

@@ -37,6 +37,7 @@ from imagegenerator_tpu_torch.checkpoint import CheckpointManager
 from imagegenerator_tpu_torch.parallel import dp, mesh
 from imagegenerator_tpu_torch.train import ema as ema_lib
 from imagegenerator_tpu_torch.utils.metrics import MetricsWriter
+from imagegenerator_tpu_torch.utils.profiling import span
 from imagegenerator_tpu_torch.utils.rng import mixed_generator
 
 SAMPLE_SEED = 456  # the fixed-noise sample grids of stage 2
@@ -129,7 +130,12 @@ class _Trainer:
         self._seed_ema()
         gstep = self.system.step
         for epoch in range(start_epoch, self.opt.num_epochs):
-            for batch in self.loader:
+            batches = iter(self.loader)
+            while True:
+                with span("data"):  # the wait for the loader, in a profiler's trace
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 metrics = self._train_step(batch, gstep)
                 if self.ema is not None:
                     ema_lib.update(self.ema, self.system, self.opt.ema_decay)

@@ -1,56 +1,46 @@
 """Profiling hooks — counterpart of ``imagegenerator_tpu/utils/profiling.py``:
-a ``torch.profiler`` trace of a span of the run, and step timing that
-waits for the card.
+a ``torch.profiler`` trace of a stretch of the run, and the spans that
+name its phases.
 
 ``trace(logdir)`` records the host's activity and, where CUDA is
 available, the card's kernels, and writes one Chrome trace per
 data-parallel rank, ``<logdir>/trace_rank<R>.json`` (open it in
 ``chrome://tracing`` or Perfetto). The training CLI wraps ``fit`` in it
-and the v2 CLI the optimisation loop, the spans the JAX CLIs trace.
+and the v2 CLI the optimisation loop, the stretches the JAX CLIs trace.
+
+``span(name)`` marks a phase of the work as a ``user_annotation`` event
+of the trace, on the host's clock, as are the card's kernels' launches. The
+training loop shows ``data`` (the wait for the loader's next batch) and
+both stages' ``train_step`` with, inside it, ``text`` (the encoder's and
+projection's forward), ``critic`` (one critic iteration, ``n_critic`` a
+step), ``generator`` (the generator side's forward and gradient),
+``text_backward`` (stage 1: the encoder's and projection's gradient) and
+``optimizer`` (one optimizer's update). A kernel belongs to the span
+whose interval held its launch (the launch event with its
+``correlation``), on any thread: autograd launches the backward's
+kernels from its own. So an operator reads where the card's time of a
+step goes, and what the host was doing where the card sat idle.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from imagegenerator_tpu_torch.parallel import dp
 
 
-def _tensors(tree):
-    if torch.is_tensor(tree):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
-def fence(tree) -> None:
-    """Wait until the work that produces the tensors of ``tree`` (a
-    tensor, or dicts, lists and tuples of them) has finished on their
-    cards."""
-    for device in {t.device for t in _tensors(tree) if t.device.type == "cuda"}:
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def step_timer(name: str, result: dict | None = None):
-    """Host-clock seconds of the block, into ``result[name]`` or printed.
-    Fence the block's outputs inside it: CUDA calls return before the
-    card is done."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if result is not None:
-        result[name] = dt
-    else:
-        print(f"[timer] {name}: {dt * 1000:.2f} ms", flush=True)
+def span(name: str):
+    """A context naming a phase of the work in a running profiler's trace
+    (``torch.profiler.record_function``); with no profiler recording, a
+    context that does nothing, at the cost of one flag check. It reads no
+    clock and synchronises nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def trace_path(logdir: str, rank: int | None = None) -> str:

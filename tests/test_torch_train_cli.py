@@ -174,6 +174,8 @@ def test_cli_profile_dir_writes_a_trace_of_the_training_loop(tmp_path, capsys):
     assert os.listdir(prof) == ["trace_rank0.json"]
     events = json.loads((prof / "trace_rank0.json").read_text())["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"data", "train_step", "critic"} <= spans
 
 
 def test_cli_multihost_runs_as_one_rank_over_gloo(tmp_path, capsys, monkeypatch):
