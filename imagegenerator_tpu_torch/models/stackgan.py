@@ -3,11 +3,15 @@ counterpart of ``imagegenerator_tpu/models/stackgan.py`` (eval and train
 mode).
 
 Both generators take and return images NHWC ``(B, H, W, 3)`` in [-1, 1],
-the JAX package's layout, and run NCHW inside: a permute of an NHWC
-tensor is an NCHW view with ``channels_last`` strides, so no copy is
-made at either end. Submodule names follow flax's automatic names
-(``UpBlock_0``, ``ConvTranspose2d_0``, ...), so each parameter's path
-matches its path in the JAX package's parameter tree.
+the JAX package's layout. Every net runs NCHW inside with
+``channels_last`` strides, so that cuDNN, whose kernels are NHWC,
+transposes nothing: a permute of an NHWC image is such a view, G1's seed
+is a 1x1 NHWC map, and the concatenations are made along NHWC's last
+axis; a conv on a channels-last input returns one (``ops/layers.py``),
+and a generator's output permuted back is plain NHWC memory. Submodule
+names follow flax's automatic names (``UpBlock_0``, ``ConvTranspose2d_0``,
+...), so each parameter's path matches its path in the JAX package's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -24,6 +28,17 @@ from imagegenerator_tpu_torch.ops.layers import (
     DownBlock,
     UpBlock,
 )
+
+
+def _concat_replicated(x, v):
+    """``x`` NCHW ``(B, C, h, w)`` with ``v (B, D)`` replicated over its
+    map and appended after its channels, in ``x``'s dtype: ``(B, C + D, h,
+    w)``, channels-last. Concatenated on NHWC's last axis, since a
+    concatenation along NCHW channels with an expanded operand falls back
+    to NCHW memory."""
+    B, _, h, w = x.shape
+    rep = v.to(x.dtype)[:, None, None, :].expand(B, h, w, v.shape[1])
+    return torch.cat([x.permute(0, 2, 3, 1), rep], dim=3).permute(0, 3, 1, 2)
 
 
 class StageIGenerator(nn.Module):
@@ -45,7 +60,7 @@ class StageIGenerator(nn.Module):
 
     def forward(self, x):
         """x: ``(B, c_dim + z_dim)`` -> ``(B, res, res, 3)``."""
-        x = x[:, :, None, None]
+        x = x[:, None, None, :].permute(0, 3, 1, 2)  # a 1x1 NHWC map: channels-last
         for i in range(self.n_up):
             x = getattr(self, f"UpBlock_{i}")(x)
         return torch.tanh(self.ConvTranspose2d_0(x)).permute(0, 2, 3, 1)
@@ -68,11 +83,8 @@ class _TextImageCriticHead(nn.Module):
 
     def forward(self, feat, tem):
         """feat NCHW ``(B, C, 4, 4)``, tem ``(B, tem_size)`` -> ``(B, 1)``."""
-        B, _, h, w = feat.shape
-        compressed = self.Dense_0(tem)
-        rep = compressed[:, :, None, None].expand(B, compressed.shape[1], h, w).to(feat.dtype)
-        x = self.Conv2d_0(torch.cat([feat, rep], dim=1))
-        return self.Dense_1(x.permute(0, 2, 3, 1).reshape(B, -1))
+        x = self.Conv2d_0(_concat_replicated(feat, self.Dense_0(tem)))
+        return self.Dense_1(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
 
 
 class StageIDiscriminator(nn.Module):
@@ -166,10 +178,7 @@ class StageIIGenerator(nn.Module):
         """img_64 ``(B, r, r, 3)``, c_hat ``(B, c_dim)`` ->
         ``(B, R, R, 3)``."""
         x = F.leaky_relu(self.Conv2d_0(img_64.permute(0, 3, 1, 2)), 0.1)
-        x = self.DownBlock_0(x)
-        B, _, h, w = x.shape
-        rep = c_hat[:, :, None, None].expand(B, c_hat.shape[1], h, w).to(x.dtype)
-        x = torch.cat([x, rep], dim=1)
+        x = _concat_replicated(self.DownBlock_0(x), c_hat)
         for i in range(self.n_res):
             x = getattr(self, f"ResidualBlock_{i}")(x)
         for i in range(self.n_up):

@@ -1,8 +1,11 @@
 """Layers with torch shapes and default inits and the JAX package's dtype
 rules — counterpart of ``imagegenerator_tpu/ops/layers.py``.
 
-Conv layers and blocks take NCHW tensors (``channels_last`` strides work
-unchanged). Each layer holds f32 parameters and computes in its
+Conv layers and blocks take NCHW tensors in either memory format. A
+conv whose input is channels-last takes its weight channels-last too, in
+the copy that casts it, and returns channels-last; BatchNorm normalises
+the ``(N*H*W, C)`` rows of its input, a view of a channels-last one, and
+returns channels-last. Each layer holds f32 parameters and computes in its
 ``dtype``, or in the input's dtype when ``dtype`` is None, as the JAX
 layers do. Parameters are drawn with torch's default laws, which
 ``imagegenerator_tpu/ops/init.py`` reproduces in JAX:
@@ -43,6 +46,18 @@ def _uniform(shape, fan_in, *, device=None, generator=None) -> nn.Parameter:
     return nn.Parameter(t.uniform_(-bound, bound, generator=generator))
 
 
+def _conv_operands(layer, x):
+    """``(x, weight, bias)`` of a conv layer in its compute dtype. The
+    weight takes the input's memory format: channels-last for a
+    channels-last input (the cast's one copy lays it out; cuDNN would
+    otherwise re-lay it on every call), as stored for any other."""
+    dtype = layer.dtype or x.dtype
+    cl = x.is_contiguous(memory_format=torch.channels_last)
+    fmt = torch.channels_last if cl else torch.preserve_format
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    return x.to(dtype), layer.weight.to(dtype, memory_format=fmt), b
+
+
 class Conv2d(nn.Module):
     """torch ``nn.Conv2d(in, out, k, s, p)``; weight ``(out, in, k, k)``."""
 
@@ -56,11 +71,8 @@ class Conv2d(nn.Module):
         self.bias = _uniform((out_ch,), fan_in, **kw) if use_bias else None
 
     def forward(self, x):
-        dtype = self.dtype or x.dtype
-        b = None if self.bias is None else self.bias.to(dtype)
         return conv_ops.conv2d(
-            x.to(dtype), self.weight.to(dtype), b,
-            stride=self.stride, padding=self.padding,
+            *_conv_operands(self, x), stride=self.stride, padding=self.padding,
         )
 
 
@@ -78,11 +90,8 @@ class ConvTranspose2d(nn.Module):
         self.bias = _uniform((out_ch,), fan_in, **kw) if use_bias else None
 
     def forward(self, x):
-        dtype = self.dtype or x.dtype
-        b = None if self.bias is None else self.bias.to(dtype)
         return conv_ops.conv_transpose2d(
-            x.to(dtype), self.weight.to(dtype), b,
-            stride=self.stride, padding=self.padding,
+            *_conv_operands(self, x), stride=self.stride, padding=self.padding,
         )
 
 
@@ -105,7 +114,8 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """torch ``nn.BatchNorm2d`` semantics over NCHW channels: eps 1e-5,
+    """torch ``nn.BatchNorm2d`` semantics over NCHW channels, with a
+    channels-last output whatever the input's layout: eps 1e-5,
     momentum 0.1 (flax's 0.9). As in flax's ``nn.BatchNorm``, training
     mode takes the biased batch variance by flax's fast formula,
     ``max(E[x^2] - E[x]^2, 0)`` in f32 over (N, H, W), normalises with it
@@ -133,21 +143,26 @@ class BatchNorm(nn.Module):
         self.sync = None
         self.sync_size = 1
 
-    def _moments(self, xf):
-        """``(E[x], E[x^2])`` over (N, H, W), over the ``sync`` group's rows
-        where set."""
+    def _moments(self, rows):
+        """``(E[x], E[x^2])`` over the ``(N*H*W, C)`` rows, over the
+        ``sync`` group's rows where set."""
         if self.sync is None:
-            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
-        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * self.sync_size
-        sums = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
-        sums = tp_ops.all_reduce_sum(sums, self.sync) / n
+            return rows.mean(dim=0), (rows * rows).mean(dim=0)
+        sums = torch.stack([rows.sum(dim=0), (rows * rows).sum(dim=0)])
+        sums = tp_ops.all_reduce_sum(sums, self.sync) / (rows.shape[0] * self.sync_size)
         return sums[0], sums[1]
 
     def forward(self, x):
         out_dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
-        xf = x.float()
+        B, C, H, W = x.shape
+        # the (N*H*W, C) rows are a view of a channels-last x, and every
+        # tensor the backward and the penalty's double backward make of the
+        # per-channel broadcasts is channels-last too: broadcast over NCHW
+        # axes, they would come out NCHW, for autograd to add into the
+        # channels-last gradients an element at a time
+        rows = x.float().permute(0, 2, 3, 1).reshape(-1, C)
         if self.training:
-            mean, mean_sq = self._moments(xf)
+            mean, mean_sq = self._moments(rows)
             var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         if self.training and statistics_frozen.writes:
             with torch.no_grad():
@@ -157,8 +172,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(out_dtype)
+        y = (rows - mean) * mul + self.bias
+        return y.to(out_dtype).reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
 class UpBlock(nn.Module):

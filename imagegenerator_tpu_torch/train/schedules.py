@@ -45,3 +45,19 @@ def set_lr(opt: torch.optim.Optimizer, base_lr: float, step_size: int, gamma: fl
     lr = step_lr(base_lr, step_size, gamma, update_count(opt))
     for group in opt.param_groups:
         group["lr"] = lr
+
+
+def set_grads(params, grads) -> None:
+    """``p.grad = g`` for each pair, in ``p``'s own strides, as
+    ``backward()`` lays a gradient out: ``torch.autograd.grad`` hands a
+    conv weight's gradient back channels-last, and the optimizers' foreach
+    kernels leave their fast path where a gradient's strides differ from
+    its parameter's."""
+    for p, g in zip(params, grads):
+        p.grad = g if strided_alike(g, p) else torch.empty_like(p).copy_(g)
+
+
+def strided_alike(a, b) -> bool:
+    """``a`` and ``b`` of one shape step alike through memory: their
+    strides agree on every dimension longer than 1."""
+    return all(n == 1 or s == t for n, s, t in zip(a.shape, a.stride(), b.stride()))

@@ -425,8 +425,7 @@ class Stage1System(nn.Module):
                     text_grads = torch.autograd.grad(tem, text_params, grad_outputs=g_tem)
                 params, grads = text_params + gan_params, [*text_grads, *gan_grads]  # GEN_SIDE's order
                 reduce(grads)
-                for p, g in zip(params, grads):
-                    p.grad = g
+                schedules.set_grads(params, grads)
                 for name in GEN_SIDE:
                     self._update(name)
             finally:

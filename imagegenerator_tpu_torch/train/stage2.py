@@ -340,8 +340,7 @@ class Stage2System(nn.Module):
                     loss_gen = losses.wgan_generator_loss(s_fake) + kl
                     grads = torch.autograd.grad(loss_gen, params)
                 reduce(list(grads))
-                for p, g in zip(params, grads):
-                    p.grad = g
+                schedules.set_grads(params, grads)
                 for name in GEN_SIDE:
                     self._update(name)
             finally:
