@@ -2,15 +2,18 @@
 against the plain reference's, from the same weights, batches and draws.
 
 Four numbers; a cell holds those its limits file names
-(``limits/<cell>.json``) to their limits:
+(``limits/<cell>.json``) to their limits. The system names the step's
+losses (``loss_names()``): the first, and a second where the step has
+one.
 
-* ``loss_gap``: the first step's critic loss (its last critic
-  iteration's), relative to the reference's or to ``LOSS_SCALE``,
-  whichever is larger;
-* ``gen_loss_gap``: the same of the first step's generator loss, whose
-  KL term sums over the batch's rows, so that a step over part of its
-  rows reads that part's share of it; the loss is a bfloat16 sum whose
-  last place is near a hundredth of it, which the limit leaves room for;
+* ``loss_gap``: the first step's first loss (StackGAN's critic loss,
+  its last critic iteration's), relative to the reference's or to
+  ``LOSS_SCALE``, whichever is larger;
+* ``gen_loss_gap``: the same of the first step's second loss (StackGAN's
+  generator loss, whose KL term sums over the batch's rows, so that a
+  step over part of its rows reads that part's share of it; the loss is
+  a bfloat16 sum whose last place is near a hundredth of it, which the
+  limit leaves room for); a system with one loss has none;
 * ``grad_norm_gap``: the first gradient as each compared optimizer took
   it (from Adam's first moment after step 1), leaf by leaf: the gap
   between the program's norm and the reference's, relative to the
@@ -77,15 +80,16 @@ def _loss_gap(prog: dict, ref: dict, key: str) -> float:
     return abs(prog[key] - ref[key]) / max(abs(ref[key]), LOSS_SCALE)
 
 
-def compare(prog: dict, ref: dict, theta0: dict, groups: dict) -> dict:
+def compare(prog: dict, ref: dict, theta0: dict, groups: dict, losses: tuple) -> dict:
     """``prog`` and ``ref``: ``{"metrics": [per step, floats], "grad":
     {leaf: norm}, "params": {leaf: tensor after STEPS steps}}``;
     ``theta0`` the initial parameters; ``groups`` each optimizer's
-    leaves. Returns each number, the leaf it came from and every leaf's
+    leaves; ``losses`` the names of the step's one or two losses in its
+    metrics. Returns each number, the leaf it came from and every leaf's
     readings."""
     if len(prog["metrics"]) != len(ref["metrics"]):
         raise ValueError("the program and the reference took different numbers of steps")
-    step_gaps = [_loss_gap(mp, mr, "loss_critic") for mp, mr in zip(prog["metrics"], ref["metrics"])]
+    step_gaps = [_loss_gap(mp, mr, losses[0]) for mp, mr in zip(prog["metrics"], ref["metrics"])]
     names = sorted(n for leaves in groups.values() for n in leaves)
     missing = [n for n in names if n not in prog["grad"] or n not in prog["params"]]
     if missing:
@@ -103,8 +107,10 @@ def compare(prog: dict, ref: dict, theta0: dict, groups: dict) -> dict:
     change_gaps = _gaps(change["prog"], change["ref"], moved)
     grad, grad_leaf = _worst(grad_gaps)
     chg, chg_leaf = _worst(change_gaps)
-    return {"loss_gap": step_gaps[0], "gen_loss_gap": _loss_gap(prog["metrics"][0], ref["metrics"][0], "loss_gen"),
-            "grad_norm_gap": grad, "change_norm_gap": chg,
+    out = {"loss_gap": step_gaps[0]}
+    if len(losses) > 1:
+        out["gen_loss_gap"] = _loss_gap(prog["metrics"][0], ref["metrics"][0], losses[1])
+    return {**out, "grad_norm_gap": grad, "change_norm_gap": chg,
             "leaves": {"grad_norm_gap": grad_leaf, "change_norm_gap": chg_leaf},
             "step_loss_gaps": step_gaps,
             "median": {"grad_norm_gap": statistics.median(grad_gaps.values()),
@@ -118,6 +124,9 @@ def compare(prog: dict, ref: dict, theta0: dict, groups: dict) -> dict:
 def verdict(numbers: dict, limits: dict) -> tuple:
     """``(correct, [(name, number, limit)])`` over the numbers ``limits``
     names; a number that is not finite fails."""
+    unread = [n for n in limits if n not in numbers]
+    if unread:
+        raise ValueError(f"the limits name {unread}, which this system's comparison does not read")
     rows = [(n, numbers[n], limits[n]) for n in NUMBERS if n in limits]
     ok = all(v == v and v <= lim for _, v, lim in rows)
     return ok, rows

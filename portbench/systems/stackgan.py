@@ -10,11 +10,21 @@ its keep masks, the embedding's and two per layer over the doubled
 caption batch, and one int32 seed per layer for the attention kernel's
 counter hash.
 
+Data parallelism (a mix's ``ranks`` over 1): one ``System`` a rank, on
+its own card, steps its own rows (``traffic.pool`` of its rank) with its
+own draws, and the port's step averages at its ``pmean`` sites through
+``parallel/dp.py::all_reduce_mean``, as ``train.cli`` runs it under
+``torchrun``. Rank ``r``'s draws of step ``k`` are seeded from ``(seed,
+stream, k, r)``; at one rank from ``(seed, stream, k)``, as before ranks
+were. ``shards(k)`` makes every rank's batch and draws again from the
+seed, so that the reference steps exactly what the ranks stepped.
+
 ``fault`` plants one fault of the kinds the check must catch in a
-training cell on one card (the tests, and the readings of each fault on
-the chip): ``stale`` (the step leaves the parameters as they were),
+training cell (the tests, and the readings of each fault on the chip),
+on every rank: ``stale`` (the step leaves the parameters as they were),
 ``half_batch`` (the step sees the first half of its rows only, and takes
-its means over them).
+its means over them), ``no_exchange`` (over several ranks: ``reduce``
+does nothing, so each rank steps on its own gradients).
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ from portbench.reference.stackgan import BETAS, Reference, _is_buffer
 
 NOISE_STREAM = 3
 SEED_STREAM = 4
-FAULTS = ("stale", "half_batch")
+FAULTS = ("stale", "half_batch", "no_exchange")
+LOSSES = ("loss_critic", "loss_gen")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
 
 
@@ -38,18 +49,23 @@ def _config_fields(cls, conf: dict) -> dict:
 
 
 class System:
-    """A cell's system, on one card."""
+    """A cell's system on one card: the whole of it, or rank ``rank`` of
+    the mix's ``ranks``."""
 
-    def __init__(self, conf: dict, mix_spec: dict, seed: int, device, fault: str | None = None):
+    def __init__(self, conf: dict, mix_spec: dict, seed: int, device, fault: str | None = None,
+                 rank: int = 0):
         if fault is not None and fault not in FAULTS:
             raise ValueError(f"fault {fault!r}: one of {FAULTS}")
+        self.world, self.rank = mix_spec["ranks"], rank
+        if fault == "no_exchange" and self.world == 1:
+            raise ValueError("fault no_exchange: the cell has one rank, no exchange")
         self.conf, self.mix, self.seed = conf, mix_spec, seed
         self.device = torch.device(device)
         self.stage = conf["stage"]
         self.fault = fault
         self.compute = DTYPES[conf["compute_dtype"]]
         self.batch_per_rank = mix_spec["batch_per_rank"]
-        self.images_per_step = self.batch_per_rank
+        self.images_per_step = self.batch_per_rank * self.world
         res1 = 2 ** (len(conf["gen_channels" if self.stage == 1 else "gen1_channels"]) + 2)
         self.resolution = res1 if self.stage == 1 else res1 // 4 * 2 ** (len(conf["g2_up_channels"]) + 1)
         self.port = None
@@ -85,7 +101,7 @@ class System:
         meta = cls(cfg, device="meta")
         self.shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
         self.trained = self._optimizer_modules()
-        self.pool = self._pool()
+        self.pools = {self.rank: self._pool(self.rank)}
         return meta
 
     def build(self) -> None:
@@ -100,20 +116,29 @@ class System:
             return {n: n for n in ("encoder", "projection", "con_augment", "generator", "critic")}
         return {"con_augment_2": "con_augment_2", "generator": "gen_2", "critic": "critic_2"}
 
-    def _pool(self):
+    def _pool(self, rank: int):
         bert = self.conf["bert"]
-        return traffic.pool(self.mix, self.seed, 0, self.conf["seq_len"], bert["vocab_size"],
+        return traffic.pool(self.mix, self.seed, rank, self.conf["seq_len"], bert["vocab_size"],
                             self.resolution, self.device)
 
-    def batch(self, k: int) -> dict:
-        return self.pool[k % len(self.pool)]
+    def batch(self, k: int, rank: int | None = None) -> dict:
+        """Step ``k``'s batch of this rank, or of ``rank``."""
+        rank = self.rank if rank is None else rank
+        if rank not in self.pools:
+            self.pools[rank] = self._pool(rank)
+        pool = self.pools[rank]
+        return pool[k % len(pool)]
 
     # ------------------------------------------------------------ draws
 
-    def noise(self, k: int, rows: int | None = None) -> dict:
-        """Step ``k``'s draws for a batch of ``rows``."""
-        c, B, dev = self.conf, rows or self.batch_per_rank, self.device
-        g = torch.Generator(device=dev).manual_seed(mix(self.seed, NOISE_STREAM, k))
+    def _draw_seed(self, stream: int, k: int, rank: int) -> int:
+        return mix(self.seed, stream, k) if self.world == 1 else mix(self.seed, stream, k, rank)
+
+    def noise(self, k: int, rank: int | None = None) -> dict:
+        """Step ``k``'s draws of this rank, or of ``rank``."""
+        rank = self.rank if rank is None else rank
+        c, B, dev = self.conf, self.batch_per_rank, self.device
+        g = torch.Generator(device=dev).manual_seed(self._draw_seed(NOISE_STREAM, k, rank))
         n = c["n_critic"]
         out = {"perm": torch.randperm(B, generator=g, device=dev)}
         names = ("ca_eps", "z", "gp_eps") if self.stage == 1 else ("ca1_eps", "z", "ca2_eps", "gp_eps")
@@ -129,7 +154,7 @@ class System:
             shape = (2 * B, T, bert["hidden_size"])
             out["text_masks"] = [torch.rand(shape, generator=g, device=dev) < keep
                                  for _ in range(1 + 2 * bert["num_layers"])]
-            host = torch.Generator().manual_seed(mix(self.seed, SEED_STREAM, k))
+            host = torch.Generator().manual_seed(self._draw_seed(SEED_STREAM, k, rank))
             out["attn_seeds"] = torch.randint(-2**31, 2**31, (bert["num_layers"],), generator=host).tolist()
         return out
 
@@ -144,21 +169,39 @@ class System:
         before = None
         if self.fault == "stale":
             before = {n: p.detach().clone() for n, p in self.port.named_parameters()}
-        metrics = self.port.train_step(batch, noise=noise)
+        if self.world == 1:
+            metrics = self.port.train_step(batch, noise=noise)
+        else:
+            metrics = self.port.train_step(batch, noise=noise, reduce=self._reduce)
         if before is not None:
             with torch.no_grad():
                 for n, p in self.port.named_parameters():
                     p.copy_(before[n])
         return metrics
 
+    def _reduce(self, tensors) -> None:
+        """The mean over the ranks at the step's ``pmean`` sites: the
+        port's own all-reduce (``no_exchange``: none)."""
+        if self.fault != "no_exchange":
+            from imagegenerator_tpu_torch.parallel import dp
+
+            dp.all_reduce_mean(tensors)
+
     def rates(self, images: int, seconds: float) -> dict:
         """The cell's rate, images of every step in the window over its
-        seconds, under each name a cell of this kind reports it by
-        (``BENCHMARK.json`` says which cell reports which): the
-        device-bound stage-2 step and the launch-bound stage-1 step each
-        have a bound of their own."""
+        seconds (over every rank), under each name a cell of this kind
+        reports it by (``BENCHMARK.json`` says which cell reports which):
+        the device-bound stage-2 step and the launch-bound stage-1 step
+        each have a bound of their own. The stage-1 step over several
+        ranks reports it per layer (``metrics/images_per_s.py``)."""
         rate = images / seconds
         return {"train_images_per_s": rate, "stage1_train_images_per_s": rate}
+
+    @staticmethod
+    def loss_names() -> tuple:
+        """The step's losses that ``check.compare`` holds: the critic's
+        (``loss_gap``) and the generator's (``gen_loss_gap``)."""
+        return LOSSES
 
     # --------------------------------------------------------- readings
 
@@ -197,9 +240,9 @@ class System:
         return weights.make(self.shapes, self.seed, self.device)
 
     def shards(self, k: int) -> list:
-        """Step ``k``'s ``(batch, noise)``, as a list of shards as the
-        reference takes them."""
-        return [(self.batch(k), self.noise(k))]
+        """Step ``k``'s ``(batch, noise)`` of every rank, in rank order, as
+        the reference takes them."""
+        return [(self.batch(k, r), self.noise(k, r)) for r in range(self.world)]
 
     def reference_grad_norms(self, state) -> dict:
         out = {}
@@ -229,9 +272,9 @@ class System:
     # ------------------------------------------------------------ work
 
     def flops_per_step(self) -> float:
-        """Model FLOPs of one step: the reference's step at
-        this cell's shapes, counted by ``FlopCounterMode`` on the ``meta``
-        device."""
+        """Model FLOPs of one step over every rank: the reference's step
+        at this cell's shapes, counted by ``FlopCounterMode`` on the
+        ``meta`` device."""
         from torch.utils.flop_counter import FlopCounterMode
 
         meta = torch.device("meta")
@@ -239,15 +282,15 @@ class System:
         params = {k: torch.empty(s, device=meta) for k, s in self.shapes.items()}
         state = ref.init_state(params)
         to_meta = lambda t: torch.empty_like(t, device=meta) if torch.is_tensor(t) else t
-        batch = {k: to_meta(v) for k, v in self.batch(0).items()}
-        noise = {k: ([to_meta(x) for x in v] if isinstance(v, list) else to_meta(v))
-                 for k, v in self.noise(0).items()}
+        shards = [({k: to_meta(v) for k, v in batch.items()},
+                   {k: ([to_meta(x) for x in v] if isinstance(v, list) else to_meta(v)) for k, v in noise.items()})
+                  for batch, noise in self.shards(0)]
         with FlopCounterMode(display=False) as counter:
-            ref.step(state, [(batch, noise)])
+            ref.step(state, shards)
         return float(counter.get_total_flops())
 
     def attention_work(self, k: int) -> list:
-        """The attention calls of step ``k``: per call the
+        """The attention calls of this rank's step ``k``: per call the
         key lengths of its rows, T, the hidden width, the heads and
         whether it has a backward (``metrics/attention_roofline.py``)."""
         bert = self.conf["bert"]
@@ -264,7 +307,7 @@ class System:
         return [call] * bert["num_layers"]
 
     def noise_perm(self, k: int):
-        g = torch.Generator(device=self.device).manual_seed(mix(self.seed, NOISE_STREAM, k))
+        g = torch.Generator(device=self.device).manual_seed(self._draw_seed(NOISE_STREAM, k, self.rank))
         return torch.randperm(self.batch_per_rank, generator=g, device=self.device)
 
 

@@ -7,6 +7,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -19,10 +20,10 @@ def tiny_spec(tmp_path_factory):
     return tiny.make(tmp_path_factory.mktemp("tinybench"))
 
 
-def run_cell(spec, workload, seed=3_000_000_019, seconds=0.5, trace=0, extra=(), timeout=600):
+def run_cell(spec, workload, seed=3_000_000_019, seconds=0.5, trace=0, extra=(), timeout=600, env=None):
     """Run the harness as its command does, on the CPU against the tiny
     benchmark; returns ``(returncode, stdout lines, stderr)``."""
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(env or os.environ, OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "portbench.run", "--workload", workload, "--seed", str(seed),
            "--seconds", str(seconds), "--trace", str(trace), "--spec", str(spec), "--device", "cpu",
            *extra]
@@ -33,3 +34,14 @@ def run_cell(spec, workload, seed=3_000_000_019, seconds=0.5, trace=0, extra=(),
 def result(lines):
     """The result: the last line of standard output."""
     return json.loads(lines[-1])
+
+
+def planted(plant: str, deadline: float | None = None) -> dict:
+    """An environment in which a launch has ``plant`` planted
+    (``plant/sitecustomize.py``)."""
+    here = Path(__file__).resolve().parent / "plant"
+    path = os.pathsep.join(filter(None, [str(here), str(CHECKOUT), os.environ.get("PYTHONPATH")]))
+    env = dict(os.environ, PYTHONPATH=path, PLANT=plant)
+    if deadline is not None:
+        env["PLANT_DEADLINE"] = str(deadline)
+    return env

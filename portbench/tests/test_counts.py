@@ -54,9 +54,25 @@ def test_reference_flops_by_hand():
 
 
 def test_mfu_reader():
-    ctx = {"peaks": PEAKS, "flops_per_step": 2e12, "window": {"steps": 30, "seconds": 10.0}}
-    assert metric_reader("mfu.train").read(ctx) == pytest.approx(100 * 2e12 * 3 / 989.4e12)
+    ctx = {"peaks": PEAKS, "flops_per_step": 2e12, "window": {"steps": 30, "seconds": 10.0}, "chips": 1}
+    assert metric_reader("mfu.train").read(ctx) == 100.0 * 2e12 * 30 / 10.0 / 989.4e12
     assert metric_reader("mfu.train").read(dict(ctx, peaks={})) is None
+    # four cards: the step's FLOPs over every rank, against four peaks
+    assert metric_reader("mfu.dp").read(dict(ctx, chips=4)) == pytest.approx(100 * 2e12 * 3 / (4 * 989.4e12))
+
+
+def test_images_per_s_reader():
+    ctx = {"images_per_step": 256, "window": {"steps": 217, "seconds": 52.7}}
+    assert metric_reader("images_per_s.dp").read(ctx) == 256 * 217 / 52.7
+    assert metric_reader("images_per_s.dp").read(dict(ctx, window={"steps": 0, "seconds": 1.0})) is None
+
+
+def test_allreduce_reader():
+    kernels = {"ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)": [14, 0.006],
+               "ncclKernel_Broadcast_RING_LL_Sum_int8_t": [1, 0.001], "sm90_xmma_fprop_kernel": [3, 5.0]}
+    ctx = {"trace": {"kernels": kernels, "steps": 2}}
+    assert metric_reader("allreduce_ms.dp").read(ctx) == pytest.approx(1e3 * 0.007 / 2)
+    assert metric_reader("allreduce_ms.dp").read({"trace": {"kernels": {"sm90_xmma": [1, 1.0]}, "steps": 1}}) is None
 
 
 def _event(name, cat, ts, dur):
@@ -74,6 +90,7 @@ def test_trace_reduction():
     ]
     r = tracing.reduce_trace(events, steps=2, window_s=100e-6)
     assert r["window_s"] == pytest.approx(100e-6) and r["busy_s"] == pytest.approx(40e-6)
+    assert r["overlap_s"] == pytest.approx(5e-6)  # the collective beside the convolution, 25-30
     assert set(r["kernels"]) == {"sm90_xmma_fprop_kernel", "ncclDevKernel_AllReduce", "late_kernel"}
     # idle 35-60 (middle 47.5: aten::add, started at 40, runs), 70-95 (middle 82.5: aten::add)
     assert r["gaps"] == {"aten::add": pytest.approx(50e-6)}

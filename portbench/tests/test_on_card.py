@@ -1,7 +1,8 @@
 """On the card (``-m cuda``; skipped without one): a one-chip cell at its
 full size for a short window, through the benchmark's own command, and
 its control, the reference in fp8 in the program's place, failing a
-limit on three seeds.
+limit on three seeds; a cell over several cards likewise where the host
+has a card for each of its ranks (its control needs one card).
 
     python -m pytest -m cuda portbench/tests/test_on_card.py
 """
@@ -18,11 +19,12 @@ import torch
 from portbench.common import CHECKOUT, Bench
 
 ONE_CHIP = [w["name"] for w in Bench().spec["workloads"] if w["chips"] == 1]
+RANKED = [w["name"] for w in Bench().spec["workloads"] if w["chips"] > 1]
 
 
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
+def _need_card(count=1):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < count:
+        pytest.skip(f"needs {count} NVIDIA card(s)")
 
 
 def _run(*args):
@@ -41,7 +43,18 @@ def test_cell_on_the_card(workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ONE_CHIP)
+@pytest.mark.parametrize("workload", RANKED)
+def test_ranked_cell_on_the_cards(workload):
+    _need_card(Bench().cell(workload)["chips"])
+    p = _run("--workload", workload, "--seed", str(2**35 + 9), "--seconds", "3", "--trace", "0")
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = p.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert len(lines) == 1 and out["correct"] is True and out["device"]["count"] == Bench().cell(workload)["chips"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ONE_CHIP + RANKED)
 def test_control_on_the_card(workload):
     _need_card()
     p = subprocess.run([sys.executable, "-m", "portbench.calibrate", "--workload", workload, "--mode", "control",

@@ -38,7 +38,7 @@ def test_reference_follows_the_tiny_step(stage):
     # every trained leaf, not only the compared ones: the first gradient
     for name, g in ref["grad"].items():
         assert prog["grad"][name] == pytest.approx(g, rel=1e-3, abs=1e-6), name
-    numbers = check.compare(prog, ref, theta0, s.compared_groups())
+    numbers = check.compare(prog, ref, theta0, s.compared_groups(), s.loss_names())
     assert numbers["loss_gap"] < 1e-5 and numbers["gen_loss_gap"] < 1e-5 and numbers["grad_norm_gap"] < 1e-4
     assert numbers["change_norm_gap"] < 0.05
 

@@ -1,7 +1,9 @@
 """A tiny copy of the benchmark for the CPU tests: the same cells,
 metrics and harness, each configuration at the port's tiny widths
-(``Stage1Config.tiny()``, ``Stage2Config.tiny()``) and each mix at a few
-rows of short captions, written under a directory of the test's own."""
+(``Stage1Config.tiny()``, ``Stage2Config.tiny()``), each mix at a few
+rows of short captions and a cell over several cards over ``TINY_RANKS``
+processes (gloo on the CPU), written under a directory of the test's
+own."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ TINY = {
 # limits of the tiny cells: sound runs in bf16 on the CPU read under a
 # tenth of these, every planted fault over them
 TINY_LIMITS = {"loss_gap": 0.05, "gen_loss_gap": 0.1, "grad_norm_gap": 0.1, "change_norm_gap": 0.2}
+TINY_RANKS = 2
 
 
 def tiny_config(conf: dict, **overrides) -> dict:
@@ -32,7 +35,7 @@ def tiny_config(conf: dict, **overrides) -> dict:
 
 
 def tiny_mix(mix: dict) -> dict:
-    mix = dict(mix, batch_per_rank=4)
+    mix = dict(mix, batch_per_rank=4, ranks=min(mix["ranks"], TINY_RANKS))
     mix["captions"] = dict(mix["captions"], length_histogram=[[3, 1], [5, 2], [8, 1]], first_word_id=5)
     return mix
 
@@ -51,6 +54,7 @@ def make(tmp: Path, limits: dict | None = None, **overrides) -> Path:
         mix = json.loads((ROOT / "traffic" / f"{name}.json").read_text())
         (pb / "traffic" / f"{name}.json").write_text(json.dumps(tiny_mix(mix)))
     for w in spec["workloads"]:
+        w["chips"] = min(w["chips"], TINY_RANKS)
         (pb / "limits" / f"{w['name']}.json").write_text(json.dumps({"limits": limits or TINY_LIMITS}))
     path = tmp / "BENCHMARK.json"
     path.write_text(json.dumps(spec))

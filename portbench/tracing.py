@@ -11,7 +11,8 @@ the idle gaps by what the host was doing (``breakdown``).
 A reading: ``window_s`` (the stretch on the host's clock, between
 a synchronise before its first step and one after its last), ``busy_s``
 (the union of the intervals in which a kernel, copy or fill ran on the
-card), ``steps``, ``kernels`` (name -> ``[launches, seconds]``), ``gaps``
+card), ``overlap_s`` (the time in which more than one ran at once, as
+a collective on its own stream beside compute), ``steps``, ``kernels`` (name -> ``[launches, seconds]``), ``gaps``
 (idle seconds between device work by the innermost host operator that
 was running at each gap's middle, from the second stretch) and ``work``
 (what the system says these steps asked of named kernels, for
@@ -61,6 +62,12 @@ def _union(intervals):
     return total
 
 
+def _overlap(intervals):
+    """The intervals' summed lengths less their union: time in which
+    operations ran at once, once for each beyond the first."""
+    return sum(e - s for s, e in intervals) - _union(intervals)
+
+
 def reduce_trace(events: list, steps: int, window_s: float) -> dict:
     device = []
     kernels: dict = {}
@@ -75,8 +82,8 @@ def reduce_trace(events: list, steps: int, window_s: float) -> dict:
             k[1] += d * 1e-6
     if not device:
         raise RuntimeError("the trace holds no device activity")
-    return {"window_s": window_s, "busy_s": min(_union(device) * 1e-6, window_s), "steps": steps,
-            "kernels": kernels, "gaps": _gaps(events, device)}
+    return {"window_s": window_s, "busy_s": min(_union(device) * 1e-6, window_s),
+            "overlap_s": _overlap(device) * 1e-6, "steps": steps, "kernels": kernels, "gaps": _gaps(events, device)}
 
 
 def _gaps(events, device) -> dict:
