@@ -3,12 +3,13 @@ against the plain reference, with no window, in one process.
 
     python3 -m portbench.calibrate --workload <cell> --mode <mode> --seeds 1,2,3
 
-Modes: ``program`` (the sound runs: the lower reading), ``half_batch``
-and ``no_exchange`` (those faults planted in the program, on every rank;
-see ``systems/stackgan.py``; a stale step reads 1 by construction and
-needs no run), and ``control``: the reference in float8 e4m3, the
-precision below the configuration's bfloat16, put in the program's place
-(the upper reading). One JSON line a seed on standard output: every
+Modes: ``program`` (the sound runs: the lower reading), ``control``
+(the system's control, ``System.control()``: its reference at the
+precision below the configuration's, put in the program's place; the
+upper reading), or a fault that the cell's system can have
+(``faults(world)`` of ``systems/<kind>.py``), planted in the program on
+every rank (StackGAN's ``stale`` reads 1 by construction and needs no
+run). One JSON line a seed on standard output: every
 number of ``check.py``, and for each optimizer's leaves, compared or
 not, the worst and the median leaf's gradient gap, and the gaps of the
 norms of its whole gradient and of its whole change.
@@ -30,9 +31,8 @@ import sys
 from portbench import run as harness  # sets the cache directories before torch loads
 from portbench import check, ranks
 from portbench.common import system_kind
-from portbench.reference.stackgan import Reference, fp8_e4m3
 
-MODES = ("program", "half_batch", "no_exchange", "control")
+MODES = ("program", "control")  # and the faults of the cell's system
 SEED_S = 150.0
 
 
@@ -60,7 +60,7 @@ def readings(system, mode: str):
     """The numbers of one seed; None on a rank other than 0."""
     if mode == "control":
         system.plan()
-        control = Reference(system.conf, system.stage, system.compute, quant=fp8_e4m3)
+        control = system.control()
         prog = harness._reference_steps(system, control, system.initial_params(), system.shards, check.STEPS)
     else:
         system.build()
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
-    p.add_argument("--mode", choices=MODES, required=True)
+    p.add_argument("--mode", required=True, help="program, control or a fault of the cell's system")
     p.add_argument("--seeds", required=True)
     p.add_argument("--spec", default=None, help=argparse.SUPPRESS)
     p.add_argument("--device", default=None, help=argparse.SUPPRESS)
@@ -88,10 +88,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     args.argv = argv
     seeds = [int(s) for s in args.seeds.split(",")]
+    _, _, conf, mix = harness.entries(args)
+    modes = MODES + system_kind(conf["system"]).faults(mix["ranks"])
+    if args.mode not in modes:
+        p.error(f"--mode {args.mode}: one of {', '.join(modes)} for {args.workload}")
     if args.t0 is not None:  # a rank
 
         def part(device, rank, world):
-            _, _, conf, mix = harness.entries(args)
             _read(args, conf, mix, seeds, device, rank)
             return 0
 
@@ -108,7 +111,7 @@ def main(argv=None) -> int:
 
 def _read(args, conf, mix, seeds, device, rank) -> None:
     kind = system_kind(conf["system"])
-    fault = args.mode if args.mode in ("half_batch", "no_exchange") else None
+    fault = None if args.mode in MODES else args.mode
     for seed in seeds:
         system = kind.System(conf, mix, seed, device, fault, rank)
         numbers = readings(system, args.mode)

@@ -7,8 +7,10 @@ seed, takes its first ``check.STEPS`` steps through the timed path's own
 call and keeps what the comparison needs; then the window steps back to
 back for ``--seconds`` (the rate over all its steps and all its time,
 between two synchronisations of the card); ``--trace 1`` then traces a
-few more steps (``tracing.py``) and reads the cell's per-layer metrics
-(``metrics/``).
+few more steps (``tracing.py``): the card alone, one step with the
+host's operators for the idle gaps, and a stretch with the host's
+operators split by the system's phase spans (``SPANS``); and reads the
+cell's per-layer metrics (``metrics/``).
 Once the window has closed and the peak memory is read, the program's
 state is freed and the plain reference replays the first steps;
 ``check.py`` compares them. The last line of standard output is the
@@ -55,7 +57,7 @@ os.environ["OMP_NUM_THREADS"] = "1"
 
 import torch  # noqa: E402
 
-from portbench import check, ranks, tracing  # noqa: E402
+from portbench import check, ranks, spans, tracing  # noqa: E402
 from portbench.common import Bench, metric_reader, system_kind  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "imagegenerator_tpu")
@@ -274,15 +276,20 @@ def _run_cell(args, bench, cell, conf, mix, device, rank=0):
         def steps_from(start, n):
             return lambda: [system.step(start + i) for i in range(n)]
 
-        if device.type == "cuda" and rank == 0:
+        card = device.type == "cuda"
+        if card and rank == 0:
             reading = tracing.capture(steps_from(first, TRACE_STEPS), TRACE_STEPS)
             reading["gaps"] = tracing.capture(steps_from(first + TRACE_STEPS, 1), 1, host_ops=True)["gaps"]
         else:  # the other ranks step beside rank 0; the tests: no card to trace, the stretch's shape only
-            steps_from(first, TRACE_STEPS + (world > 1))()
+            steps_from(first, TRACE_STEPS + 1)()
             reading = {"window_s": 1.0, "busy_s": 1.0, "steps": TRACE_STEPS, "kernels": {}, "gaps": {}}
-        if rank == 0:
+        phase_steps = steps_from(first + TRACE_STEPS + 1, TRACE_STEPS)
+        if rank == 0:  # on the CPU the host's alone: the spans, no device time
+            reading["phases"] = tracing.phases(phase_steps, TRACE_STEPS, kind.SPANS, card)
             reading["work"] = {"attention": [c for i in range(TRACE_STEPS)
                                              for c in system.attention_work(first + i)]}
+        else:
+            phase_steps()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     if world > 1:
         peak = ranks.largest(peak, device)
@@ -323,6 +330,7 @@ def _run_cell(args, bench, cell, conf, mix, device, rank=0):
     notes.update(steps=steps, window_s=window_s, check_s=check_s)
     if args.trace:
         notes["trace"] = {k: reading.get(k) for k in ("window_s", "busy_s", "overlap_s", "steps")}
+        notes["phases"] = spans.per_step(reading["phases"], TRACE_STEPS)
     return out, rows, notes
 
 

@@ -6,13 +6,14 @@ The program names its phases with ``torch.profiler.record_function``
 spans (``imagegenerator_tpu_torch/utils/profiling.py::span``), which the
 trace holds as ``user_annotation`` events on the profiler's clock beside
 the card's CUPTI events. ``reduce(events)`` takes a Chrome trace's
-events:
+events and the phase spans of the cell's system (``SPANS`` of
+``systems/<kind>.py``):
 
 - a device event (``tracing.DEVICE_CATS``) is joined to the
   ``cuda_runtime`` or ``cuda_driver`` event with the same
   ``args["correlation"]``, its launch;
 - the launch's ``ts`` lies in the phase of the latest-starting of the
-  program's spans (``SPANS``) whose interval holds it, on any thread:
+  program's spans (``names``) whose interval holds it, on any thread:
   autograd launches the backward's kernels from its own thread while the
   main thread waits inside the span;
 - per span name: ``device_s``, the device seconds of the events it owns
@@ -20,8 +21,7 @@ events:
   ``launches``, the kernels among them, as ``launches_per_step`` counts;
   ``idle_s``, the card's idle gaps of at least ``tracing.MIN_GAP_US``
   that end with work it launched: the card waited for that launch;
-  ``count``, how many times the span ran (``train_step``'s count is the
-  stretch's steps);
+  ``count``, how many times the span ran;
 - ``outside``: device work launched under no program span (the harness's
   own draws between steps); ``unmatched``: device work with no launch in
   the trace (``torch.profiler`` drops the launches at a trace's start);
@@ -41,14 +41,20 @@ card's clock drifted from the host's by up to 4.6 ms within a 1.2 s
 stretch, while the launches kept to their host operators, so a device
 event's own time is compared with nothing of the host's.
 
-Nothing of the benchmark reads this yet (``BENCHMARK.json`` has no
-metric of it); its own entry traces a cell's steps and prints the
-phases in device ms a step:
+The benchmark's traced runs reduce a stretch that records the host's
+operators too (``tracing.phases``; the card's activity alone holds the
+launches but none of the spans), and the phase readers in ``metrics/``
+take the device ms a step of their spans from it (``tracing.phase_ms``).
+This module's own entry traces a cell's steps after its set-up and
+prints the phases in device ms a step:
 
     python3 -m portbench.spans --workload <cell> --seed <n> [--steps 3]
 
 once with the card's activity alone, as the benchmark's readers' stretch
-records it, and once with the host's operators too.
+records it (no span: every phase reads 0), and once with the host's
+operators too, as the phase readers' stretch records it. A cell over
+several cards runs a process a card (``ranks.py``), and rank 0 traces and
+prints.
 """
 
 from __future__ import annotations
@@ -56,14 +62,10 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
-import os
 import sys
-import tempfile
-import time
 
 from portbench.tracing import DEVICE_CATS, MIN_GAP_US
 
-SPANS = ("data", "train_step", "text", "critic", "generator", "text_backward", "optimizer")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
@@ -88,7 +90,7 @@ class _Phases:
         return None
 
 
-def reduce(events: list) -> dict:
+def reduce(events: list, names) -> dict:
     spans, launches, device, cats, ops, made = [], {}, [], {}, {}, []
     for e in events:
         if e.get("ph") != "X":
@@ -96,7 +98,7 @@ def reduce(events: list) -> dict:
         cat, args = e.get("cat"), e.get("args", {})
         cats[cat] = cats.get(cat, 0) + 1
         s, d = float(e["ts"]), float(e.get("dur", 0.0))
-        if cat == "user_annotation" and e["name"] in SPANS:
+        if cat == "user_annotation" and e["name"] in names:
             spans.append((s, s + d, e["name"]))
         elif cat in LAUNCH_CATS and "correlation" in args:
             launches[args["correlation"]] = s
@@ -107,7 +109,7 @@ def reduce(events: list) -> dict:
         elif cat == "cpu_op" and "External id" in args:
             ops[args["External id"]] = (s, s + d)
     phases = _Phases(spans)
-    out = {name: _blank() for name in SPANS}
+    out = {name: _blank() for name in names}
     outside, unmatched = _blank(), _blank()
     for _, _, name in spans:
         out[name]["count"] += 1
@@ -133,10 +135,9 @@ def reduce(events: list) -> dict:
             "early": early, "early_us": early_us, "off_op": off_op, "in_op": len(checked)}
 
 
-def per_step(r: dict) -> dict:
+def per_step(r: dict, steps: int) -> dict:
     """Device ms, launches and idle ms a step of each phase, ``outside``
-    and ``unmatched``, over the stretch's ``train_step`` count."""
-    steps = r["phases"]["train_step"]["count"]
+    and ``unmatched``, over the stretch's ``steps``."""
     if not steps:
         return {}
     rows = dict(r["phases"], outside=r["outside"], unmatched=r["unmatched"])
@@ -148,54 +149,64 @@ def per_step(r: dict) -> dict:
 # ------------------------------------------------------- the entry
 
 
-def _trace(run_steps, activities) -> tuple:
-    """``(events, window_s)`` of ``run_steps()`` under the profiler."""
-    import torch
-    from torch.profiler import profile
-
-    torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        run_steps()
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f)["traceEvents"], window_s
-
-
-def main(argv=None) -> int:
-    from portbench import check, run
+def _stretches(args, conf, mix, device, rank) -> None:
+    """Set-up as the benchmark's, then the two stretches; over several
+    ranks the others step beside rank 0, which traces and prints."""
+    from portbench import check, tracing
     from portbench.common import system_kind
 
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--steps", type=int, default=3)
-    args = p.parse_args(argv)
-    opened = run.open_cell(argparse.Namespace(spec=None, workload=args.workload, device=None))
-    if opened is None:
-        return 2
-    _, _, conf, mix, device = opened
-    from torch.profiler import ProfilerActivity
-
-    system = system_kind(conf["system"]).System(conf, mix, args.seed, device)
+    kind = system_kind(conf["system"])
+    system = kind.System(conf, mix, args.seed, device, rank=rank)
     system.build()
     for k in range(check.STEPS):  # every shape warmed up, as the benchmark's set-up does
         system.step(k)
     k = check.STEPS
-    for label, activities in (("card", [ProfilerActivity.CUDA]),
-                              ("card_and_host", [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
-        events, window_s = _trace(lambda: [system.step(k + i) for i in range(args.steps)], activities)
-        k += args.steps
-        r = reduce(events)
+    for label, host_ops in (("card", False), ("card_and_host", True)):
+        start, k = k, k + args.steps
+        run_steps = lambda: [system.step(start + i) for i in range(args.steps)]
+        if rank:
+            run_steps()
+            continue
+        events, window_s = tracing.record(run_steps, host_ops, card=device.type == "cuda")
+        r = reduce(events, kind.SPANS)
         line = {"workload": args.workload, "stretch": label, "steps": args.steps,
                 "window_ms_per_step": 1e3 * window_s / args.steps,
                 "device_ms_per_step": 1e3 * r["device_s"] / args.steps,
-                **{k: r[k] for k in ("early", "early_us", "off_op", "in_op", "cats")}, "phases": per_step(r)}
+                **{key: r[key] for key in ("early", "early_us", "off_op", "in_op", "cats")},
+                "phases": per_step(r, args.steps)}
         print(json.dumps(line), flush=True)
+
+
+def main(argv=None) -> int:
+    from portbench import ranks, run
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--steps", type=int, default=3)
+    # the tests: another benchmark file, the CPU; a rank: the launcher's start
+    p.add_argument("--spec", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--device", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--t0", type=float, default=None, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    args.argv = argv
+    if args.t0 is not None:
+
+        def part(device, rank, world):
+            _, _, conf, mix = run.entries(args)
+            _stretches(args, conf, mix, device, rank)
+            return 0
+
+        ranks.serve(args.device, part, run._forbidden_loaded)
+    built = run.kernels_built()
+    opened = run.open_cell(args)
+    if opened is None:
+        return 2
+    _, _, conf, mix, device = opened
+    if device is None:
+        return run.launch("portbench.spans", args, mix["ranks"], ranks.deadline_s(0.0, built))
+    _stretches(args, conf, mix, device, 0)
     return 0
 
 

@@ -25,6 +25,11 @@ on every rank: ``stale`` (the step leaves the parameters as they were),
 ``half_batch`` (the step sees the first half of its rows only, and takes
 its means over them), ``no_exchange`` (over several ranks: ``reduce``
 does nothing, so each rank steps on its own gradients).
+
+What the harness takes from a kind of system by name (``systems/__init__.py``)
+is here too: the step's phase spans (``SPANS``), the faults a cell can have
+(``faults``), the control (``System.control``) and the tiny form the CPU
+tests run (``tiny_config``, ``tiny_mix``, ``TINY_LIMITS``).
 """
 
 from __future__ import annotations
@@ -34,13 +39,24 @@ import torch
 
 from portbench import traffic, weights
 from portbench.common import mix
-from portbench.reference.stackgan import BETAS, Reference, _is_buffer
+from portbench.reference.stackgan import BETAS, Reference, _is_buffer, fp8_e4m3
 
 NOISE_STREAM = 3
 SEED_STREAM = 4
 FAULTS = ("stale", "half_batch", "no_exchange")
+# the program's phase spans (``utils/profiling.py::span``): ``data`` around
+# the loader, ``train_step`` around a step, and inside it the text encoder's
+# forward (``text``) and stage 1's backward through it (``text_backward``),
+# the critic's iterations, the generator's update and every ``optimizer``
+SPANS = ("data", "train_step", "text", "critic", "generator", "text_backward", "optimizer")
 LOSSES = ("loss_critic", "loss_gen")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
+
+
+def faults(world: int) -> tuple:
+    """The faults a cell of ``world`` ranks can have: ``no_exchange`` only
+    over several."""
+    return FAULTS if world > 1 else tuple(f for f in FAULTS if f != "no_exchange")
 
 
 def _config_fields(cls, conf: dict) -> dict:
@@ -236,6 +252,12 @@ class System:
     def reference(self, quant=None) -> Reference:
         return Reference(self.conf, self.stage, self.compute, quant)
 
+    def control(self) -> Reference:
+        """The reference one precision below the configuration's bfloat16,
+        put in the program's place: FP8 training's formats, e4m3 operands
+        with one scale a tensor and e5m2 gradients."""
+        return self.reference(quant=fp8_e4m3)
+
     def initial_params(self) -> dict:
         return weights.make(self.shapes, self.seed, self.device)
 
@@ -328,3 +350,33 @@ def _first_half(batch: dict, noise: dict, rows: int):
             out[k] = v[:, :h]
     return batch, out
 
+
+# ------------------------------------------------------ the tiny form
+# The CPU tests run every cell at the port's tiny widths
+# (``Stage1Config.tiny()``, ``Stage2Config.tiny()``) on a few rows of short
+# captions (``portbench/tests/tiny.py``).
+
+TINY_BERT = dict(vocab_size=128, hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32,
+                 max_position_embeddings=64)
+TINY = {
+    1: dict(tem_size=32, c_dim=16, z_dim=12, nd=16, h_dim=16, seq_len=8,
+            gen_channels=[24, 12], disc_channels=[12, 24]),
+    2: dict(tem_size=32, c_dim=16, z_dim=12, nd=16, h_dim=16, seq_len=8, num_residual=1,
+            gen1_channels=[24, 12], g2_in_channels=8, g2_feat_channels=16, g2_res_channels=8,
+            g2_up_channels=[16, 8], d2_channels=[8, 16, 32]),
+}
+# limits of the tiny cells: sound runs in bf16 on the CPU read under a
+# tenth of these, every planted fault over them
+TINY_LIMITS = {"loss_gap": 0.05, "gen_loss_gap": 0.1, "grad_norm_gap": 0.1, "change_norm_gap": 0.2}
+
+
+def tiny_config(conf: dict, **overrides) -> dict:
+    conf = dict(conf, **TINY[conf["stage"]], **overrides)
+    conf["bert"] = dict(conf["bert"], **TINY_BERT)
+    return conf
+
+
+def tiny_mix(mix_spec: dict) -> dict:
+    out = dict(mix_spec, batch_per_rank=4)
+    out["captions"] = dict(mix_spec["captions"], length_histogram=[[3, 1], [5, 2], [8, 1]], first_word_id=5)
+    return out

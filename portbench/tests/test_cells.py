@@ -1,8 +1,8 @@
 """Every cell end to end on the CPU at the port's tiny widths, as the
 benchmark's command runs it: a result line of the expected form, ``correct`` true;
-each planted fault a training cell can have comes out not correct; the
-control (the reference in fp8) fails a limit; nothing of JAX loads. A
-cell over several cards runs as ranks over gloo: one result line, and a
+each fault its system can plant (``faults`` of ``systems/<kind>.py``)
+comes out not correct; its control fails a limit; nothing of JAX loads.
+A cell over several cards runs as ranks over gloo: one result line, and a
 rank that fails or hangs ends the launch within its deadline with no
 rank left."""
 
@@ -17,13 +17,28 @@ import time
 
 import pytest
 
-from portbench.common import CHECKOUT, Bench
+from portbench.common import CHECKOUT, Bench, system_kind
+from portbench.systems import stackgan
 from portbench.tests.conftest import planted, result, run_cell
-from portbench.tests.tiny import TINY_LIMITS
+from portbench.tests.tiny import TINY_RANKS
 
 SPEC = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
 RANKED = [w["name"] for w in SPEC["workloads"] if w["chips"] > 1]
+
+
+def _kind(workload):
+    bench = Bench()
+    return system_kind(bench.config(bench.cell(workload)["config"])["system"])
+
+
+def _limits(workload):
+    return _kind(workload).TINY_LIMITS
+
+
+# every fault the cell's system can plant in it, at the tiny cell's ranks
+PLANTED = [(w["name"], fault) for w in SPEC["workloads"]
+           for fault in _kind(w["name"]).faults(min(Bench().traffic(w["traffic"])["ranks"], TINY_RANKS))]
 
 
 def _check_line(out, workload, trace, bench):
@@ -55,12 +70,21 @@ def test_cell_end_to_end(tiny_spec, workload, trace):
                  if m["name"].startswith("images_per_s.")}
         assert rates <= set(out["metrics"])
     assert out["correct"], err[-2000:]
-    tail = err.strip().splitlines()[-len(TINY_LIMITS):]
-    assert [t.split()[1] for t in tail] == list(TINY_LIMITS)
+    limits = _limits(workload)
+    lines = err.strip().splitlines()
+    assert [t.split()[1] for t in lines[-len(limits):]] == list(limits)
+    if trace:  # the phase stretch, reduced by the system's own spans
+        phases = json.loads(lines[-len(limits) - 1])["phases"]
+        spans = _kind(workload).SPANS
+        assert set(spans) <= set(phases) and any(phases[n]["count"] for n in spans)
 
 
-@pytest.mark.parametrize("fault", ["stale", "half_batch"])
-@pytest.mark.parametrize("workload", CELLS)
+def test_stackgan_names_its_faults():
+    assert stackgan.faults(1) == ("stale", "half_batch")
+    assert stackgan.faults(4) == ("stale", "half_batch", "no_exchange")
+
+
+@pytest.mark.parametrize(("workload", "fault"), PLANTED)
 def test_planted_fault_is_not_correct(tiny_spec, workload, fault):
     rc, lines, err = run_cell(tiny_spec, workload, extra=("--fault", fault))
     assert rc == 0, err[-3000:]
@@ -69,8 +93,9 @@ def test_planted_fault_is_not_correct(tiny_spec, workload, fault):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_fails_a_limit(tiny_spec, workload):
-    """The reference in fp8 put in the program's place, on three seeds:
-    each reads over at least one of the tiny cells' limits."""
+    """The system's control (StackGAN's: the reference in fp8) put in the
+    program's place, on three seeds: each reads over at least one of the
+    tiny cells' limits."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     p = subprocess.run([sys.executable, "-m", "portbench.calibrate", "--workload", workload, "--mode", "control",
                         "--seeds", "1,2,3", "--spec", str(tiny_spec), "--device", "cpu"], cwd=str(CHECKOUT),
@@ -79,7 +104,7 @@ def test_control_fails_a_limit(tiny_spec, workload):
     rows = [json.loads(ln) for ln in p.stdout.splitlines() if ln.startswith("{")]
     assert len(rows) == 3
     for row in rows:
-        assert any(row[k] > lim for k, lim in TINY_LIMITS.items()), row
+        assert any(row[k] > lim for k, lim in _limits(workload).items()), row
 
 
 def test_no_result_without_a_card():
@@ -203,5 +228,5 @@ def test_calibrate_reads_seeds_over_ranks(tiny_spec, workload, mode):
     rows = [json.loads(ln) for ln in p.stdout.splitlines()]
     assert [r["seed"] for r in rows] == [1, 2]
     for row in rows:
-        over = any(row[k] > lim for k, lim in TINY_LIMITS.items())
+        over = any(row[k] > lim for k, lim in _limits(workload).items())
         assert over == (mode == "no_exchange"), row

@@ -15,8 +15,8 @@ from portbench import check
 from portbench.check import QUIET, _gaps, _loss_gap, _worst
 from portbench.common import ROOT
 from portbench.run import _first_steps, _reference_steps
+from portbench.systems import stackgan
 from portbench.systems.stackgan import System
-from portbench.tests import tiny
 
 
 def _compare_naming_stackgan(prog: dict, ref: dict, theta0: dict, groups: dict) -> dict:
@@ -61,8 +61,8 @@ def snapshots(request):
     seed: the program's first steps and the reference's."""
     torch.set_num_threads(1)
     conf = json.loads((ROOT / "configs" / f"stackgan_stage{request.param}.json").read_text())
-    mix = tiny.tiny_mix(json.loads((ROOT / "traffic" / "short_captions_b256.json").read_text()))
-    s = System(tiny.tiny_config(conf), mix, 3_000_000_019, "cpu")
+    mix = stackgan.tiny_mix(json.loads((ROOT / "traffic" / "short_captions_b256.json").read_text()))
+    s = System(stackgan.tiny_config(conf), mix, 3_000_000_019, "cpu")
     s.build()
     prog = _first_steps(s, check.STEPS)
     theta0 = s.initial_params()
@@ -87,8 +87,8 @@ def test_one_loss_reads_no_gen_loss_gap(snapshots):
     both = check.compare(prog, ref, theta0, s.compared_groups(), s.loss_names())
     assert "gen_loss_gap" not in one
     assert all(one[k] == both[k] for k in ("loss_gap", "grad_norm_gap", "change_norm_gap"))
-    limits = {k: v for k, v in tiny.TINY_LIMITS.items() if k != "gen_loss_gap"}
+    limits = {k: v for k, v in stackgan.TINY_LIMITS.items() if k != "gen_loss_gap"}
     _, rows = check.verdict(one, limits)
     assert [r[0] for r in rows] == ["loss_gap", "grad_norm_gap", "change_norm_gap"]
     with pytest.raises(ValueError, match="gen_loss_gap"):
-        check.verdict(one, tiny.TINY_LIMITS)
+        check.verdict(one, stackgan.TINY_LIMITS)

@@ -13,14 +13,14 @@ import torch
 from portbench import check
 from portbench.common import ROOT
 from portbench.run import _first_steps, _reference_steps
+from portbench.systems import stackgan
 from portbench.systems.stackgan import System
-from portbench.tests import tiny
 
 
 def _system(stage, dtype="float32", **overrides):
     conf = json.loads((ROOT / "configs" / f"stackgan_stage{stage}.json").read_text())
-    conf = tiny.tiny_config(conf, compute_dtype=dtype, **overrides)
-    mix = tiny.tiny_mix(json.loads((ROOT / "traffic" / "short_captions_b256.json").read_text()))
+    conf = stackgan.tiny_config(conf, compute_dtype=dtype, **overrides)
+    mix = stackgan.tiny_mix(json.loads((ROOT / "traffic" / "short_captions_b256.json").read_text()))
     return System(conf, mix, 2**40 + 3, "cpu")
 
 

@@ -75,7 +75,9 @@ def test_cell_files_found_by_name(cell):
     assert mix["ranks"] == w["chips"]
     assert set(bench.limits(cell)) <= set(check.NUMBERS) and bench.limits(cell)
     kind = importlib.import_module(f"portbench.systems.{conf['system']}")
-    assert hasattr(kind, "System")
+    assert hasattr(kind, "System") and callable(kind.System.control)
+    assert kind.SPANS and set(kind.faults(w["chips"])) and set(kind.TINY_LIMITS) <= set(check.NUMBERS)
+    assert callable(kind.tiny_config) and callable(kind.tiny_mix)
     for m in bench.metrics_of("per_layer", cell):
         reader = importlib.import_module(f"portbench.metrics.{m['name'].split('.', 1)[0]}")
         assert callable(reader.read)

@@ -14,9 +14,11 @@ a synchronise before its first step and one after its last), ``busy_s``
 card), ``overlap_s`` (the time in which more than one ran at once, as
 a collective on its own stream beside compute), ``steps``, ``kernels`` (name -> ``[launches, seconds]``), ``gaps``
 (idle seconds between device work by the innermost host operator that
-was running at each gap's middle, from the second stretch) and ``work``
-(what the system says these steps asked of named kernels, for
-rooflines).
+was running at each gap's middle, from the second stretch), ``phases``
+(a third stretch, recording the host too, by the system's phase spans:
+``spans.reduce`` with its ``steps``; the card-only stretch holds the
+launches but none of the program's spans) and ``work`` (what the system
+says these steps asked of named kernels, for rooflines).
 """
 
 from __future__ import annotations
@@ -32,24 +34,58 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MIN_GAP_US = 5.0  # shorter idle spells are launch jitter, not a gap
 
 
-def capture(run_steps, steps: int, host_ops: bool = False) -> dict:
-    """Run ``run_steps()`` (``steps`` steps) under the profiler and reduce
-    the trace; ``host_ops`` records the host's operators too."""
+def record(run_steps, host_ops: bool, card: bool = True) -> tuple:
+    """``(events, window_s)``: the Chrome trace's events of ``run_steps()``
+    under the profiler, recording the card's activity and, with
+    ``host_ops``, the host's operators and the program's spans; without
+    ``card`` (the CPU tests) the host's alone."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] if card else []
+    if host_ops or not card:
+        activities.append(ProfilerActivity.CPU)
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    sync()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run_steps()
-        torch.cuda.synchronize()
+        sync()
         window_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"], window_s
+
+
+def capture(run_steps, steps: int, host_ops: bool = False) -> dict:
+    """Run ``run_steps()`` (``steps`` steps) under the profiler and reduce
+    the trace; ``host_ops`` records the host's operators too."""
+    events, window_s = record(run_steps, host_ops)
     return reduce_trace(events, steps, window_s)
+
+
+def phases(run_steps, steps: int, names, card: bool = True) -> dict:
+    """``run_steps()`` (``steps`` steps) recorded with the host's
+    operators and reduced by the phase spans ``names``
+    (``spans.reduce``), with ``steps``."""
+    from portbench import spans
+
+    events, _ = record(run_steps, host_ops=True, card=card)
+    return dict(spans.reduce(events, names), steps=steps)
+
+
+def phase_ms(reading: dict, names) -> float | None:
+    """Self device ms a step of the phase spans ``names`` together, from
+    the reading's ``phases``; None where none of them ran, or where the
+    stretch holds no device work (no card traced)."""
+    r = reading.get("phases")
+    if not r or not r["device_s"]:
+        return None
+    ran = [r["phases"][n] for n in names if n in r["phases"] and r["phases"][n]["count"]]
+    if not ran:
+        return None
+    return 1e3 * sum(p["device_s"] for p in ran) / r["steps"]
 
 
 def _union(intervals):
