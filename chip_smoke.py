@@ -20,6 +20,8 @@ card (or more, where there are).
     python3 chip_smoke.py --only bench  # build, then phase 12 alone
     python3 chip_smoke.py --only weights-day  # build, then phase 13 alone
     python3 chip_smoke.py --only attention-shapes  # build, then phase 14 alone
+    python3 chip_smoke.py --only batchnorm  # build, then phase 15 alone, and its
+                                            # rows of the kernels line
 
 Phases, one or a few lines each; any failure ends the run with a
 non-zero exit and no result line:
@@ -294,6 +296,19 @@ non-zero exit and no result line:
    head dim 8) with fused attention and text dropout on, f32, on the card
    (FMA kernels, off cuDNN) against the same step on the CPU, masks and
    seeds replayed, at phase 8 (c)'s limits.
+
+15. the BatchNorm kernels (``--only batchnorm``; csrc/batch_norm_nhwc.cu).
+   (a) ``tests/test_torch_kernels_cuda.py -k batch_norm``: each pass
+   against its plain version at every BatchNorm shape of G1, D1, G2 and
+   D2 at batch 256 in bf16, the Functions against the layer's composition,
+   two calls to equal bits, the counters of a tiny stage-2 step with the
+   plain versions refused, other dtypes refused. (b) At G2's largest map
+   (128 x 128 x 80, batch 256, bf16) the three passes against their plain
+   versions with one planted fault (the forward's eps at 0.25). (c) The
+   full-width stage-2 step (bf16, tokens route) at batch 32: the kernel
+   launches of each route a step. (d) ``tools/probe_torch_batchnorm.py`` at G2's
+   128 x 128 x 80 and 16 x 16 x 640 and D2's 64 x 64 x 32: kernel, plain
+   (the layer's composition) and ``F.batch_norm`` times and the bound.
 
 Then one JSON line of the kernels (each with its launches on its main
 path, its error, its time, its plain version's, the least time the card
@@ -2018,7 +2033,7 @@ TINY_TOL = {"metric": 1e-4, "bn": 1e-4, "moment": 1e-4, "param": 1e-4, "noise": 
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if any(k in n for k in ("attention_", "layernorm", "vq_argmin", "lerp")):
+    if any(k in n for k in ("attention_", "layernorm", "vq_argmin", "lerp", "batch_norm")):
         return "hand-written kernels"
     if any(k in n for k in ("xmma", "cudnn", "cutlass", "gemm", "conv", "wgrad", "dgrad", "fprop",
                             "nhwc", "nchw")):
@@ -5139,6 +5154,103 @@ def phase_shapes(attention, layernorm, gen, card) -> tuple:
     return rows, launches
 
 
+BN_PROBED = "80x128,640x16,32x64"  # G2's largest map and its residual width, D2's first DownBlock
+BN_STEP_BATCH = 32
+
+
+def phase_batchnorm(card) -> list:
+    """Phase 15: the BatchNorm kernels. Returns the kernels line's rows."""
+    import torch
+
+    from imagegenerator_tpu_torch.ops.kernels import batchnorm as bn
+    from imagegenerator_tpu_torch.train.stage2 import Stage2System
+
+    t0 = time.perf_counter()
+    log("phase 15 (a): tests/test_torch_kernels_cuda.py -k batch_norm")
+    tests = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q", "-m",
+                            "cuda", "tests/test_torch_kernels_cuda.py", "-k", "batch_norm"],
+                           cwd=ROOT, capture_output=True, text=True)
+    log(f"  {tests.stdout.strip().splitlines()[-1]}")
+    if tests.returncode != 0:
+        raise AssertionError(f"phase 15: the BatchNorm card tests failed:\n{tests.stdout[-4000:]}")
+
+    log("phase 15 (b): 256 x 128 x 128 x 80 bf16, each pass against its plain version, one planted fault")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    C, H, B = 80, 128, 256
+    shape = (B, C, H, H)
+    cl = lambda t: bn.rows(t.contiguous(memory_format=torch.channels_last))
+    x, g, gg = (cl(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)) for _ in range(3))
+    w = 1.0 + 0.2 * torch.randn(C, generator=gen, device="cuda")
+    b = 0.2 * torch.randn(C, generator=gen, device="cuda")
+    n, inv = x.shape[0], 1.0 / x.shape[0]
+    kw = dict(count=n, training=True, update=False, eps=1e-5, momentum=0.1, out_dtype=torch.bfloat16)
+    stats_rm = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+    sums = bn.batch_norm_sums(bn.FWD, x)
+    y, stats = bn.batch_norm_fwd(x, sums, w, b, *stats_rm, **kw)
+    errs = {"fwd": compare("forward y", y, bn.batch_norm_fwd_reference(x, sums, w, b, *stats_rm, **kw)[0],
+                           1e-2, 1e-2)}
+    bsums = bn.batch_norm_sums(bn.BWD, g, x, stats=stats)
+    errs["bwd"] = compare("backward dx", bn.batch_norm_bwd(g, x, stats, w, bsums, inv),
+                          bn.batch_norm_bwd_reference(g, x, stats, w, bsums, inv), 1e-2, 1e-2)
+    dsums = bn.batch_norm_sums(bn.DBL, gg, x, g, stats)
+    got = bn.batch_norm_double_bwd(gg, x, g, stats, w, dsums, dsums, bsums, bsums, None, None, inv)
+    want = bn.batch_norm_double_bwd_reference(gg, x, g, stats, w, dsums, dsums, bsums, bsums, None, None, inv)
+    errs["double_bwd"] = max(compare("double backward d/dg", got[0], want[0], 1e-2, 1e-2),
+                             compare("double backward d/dx", got[1], want[1], 1e-2, 1e-2 * want[1].abs().max().item()))
+    planted = bn.batch_norm_fwd(x, sums, w, b, *stats_rm, **dict(kw, eps=0.25))[0]
+    try:
+        compare("planted: the forward's eps at 0.25", planted, y, 1e-2, 1e-2)
+    except AssertionError:
+        log("  planted fault caught")
+    else:
+        raise AssertionError("phase 15: the planted fault was not caught")
+    del x, g, gg, y, got, want, planted
+
+    log(f"phase 15 (c): full-width stage-2 step, bf16, tokens route, batch {BN_STEP_BATCH}")
+    cfg = train2_config(True, torch.bfloat16)
+    system = Stage2System(cfg, device="cuda", generator=gen)
+    res = cfg.resolution
+    batch = {"input_ids": torch.randint(1, cfg.bert.vocab_size, (BN_STEP_BATCH, cfg.seq_len), generator=gen,
+                                        device="cuda", dtype=torch.int32),
+             "attention_mask": torch.ones((BN_STEP_BATCH, cfg.seq_len), dtype=torch.int32, device="cuda"),
+             "image": torch.randint(0, 256, (BN_STEP_BATCH, res, res, 3), generator=gen, device="cuda",
+                                    dtype=torch.uint8)}
+    system.train_step(batch, generator=gen)  # warm-up
+    bn.fwd_launches = bn.bwd_launches = bn.double_bwd_launches = 0
+    system.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    step = {"fwd": bn.fwd_launches, "bwd": bn.bwd_launches, "double_bwd": bn.double_bwd_launches}
+    log(f"  BatchNorm kernel launches a step: {step}")
+    if min(step.values()) < 1:
+        raise AssertionError(f"phase 15: a BatchNorm route ran off the kernels in the stage-2 step: {step}")
+    del system, batch
+    torch.cuda.empty_cache()
+
+    log(f"phase 15 (d): tools/probe_torch_batchnorm.py --shapes {BN_PROBED}")
+    probe = subprocess.run([sys.executable, "tools/probe_torch_batchnorm.py", "--shapes", BN_PROBED], cwd=ROOT,
+                           capture_output=True, text=True)
+    if probe.returncode != 0:
+        raise AssertionError(f"phase 15: the probe failed:\n{probe.stderr[-4000:]}")
+    for line in probe.stdout.strip().splitlines()[1:-1]:
+        if "kernel fwd" in line:  # the rows, not ptxas's report
+            log(f"  {line}")
+    probed = {r["shape"]: r for r in json.loads(probe.stdout.strip().splitlines()[-1])["batch_norm_probe"]}
+    rows = []
+    for which in ("fwd", "bwd", "double_bwd"):
+        rows.append({"name": f"batch_norm_{which}", "route": "cuda",
+                     "source": "imagegenerator_tpu_torch/csrc/batch_norm_nhwc.cu",
+                     "replaces": "none: the JAX package leaves BatchNorm to XLA",
+                     "launches": step[which], "stage2_step_launches": step[which],
+                     "max_abs_err": errs[which],
+                     "ms": {shape: r["kernel_ms"][which] for shape, r in probed.items()},
+                     "device_ms": {shape: r["device_ms"][which] for shape, r in probed.items()},
+                     "plain_ms": {shape: r["plain_ms"][which] for shape, r in probed.items()},
+                     "bound_ms": {shape: r["bound_ms"][which] for shape, r in probed.items()},
+                     "library_ms": {shape: r["library_ms"] for shape, r in probed.items()}})
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 def main() -> int:
     import argparse
 
@@ -5146,7 +5258,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["train", "train2", "v2", "dp", "eval", "tp", "bench", "weights-day",
-                                           "attention-shapes", "d2-trace", "tiny-trace", "tiny-witness"],
+                                           "attention-shapes", "d2-trace", "tiny-trace", "tiny-witness",
+                                           "batchnorm"],
                         default=None,
                         help="build, then run one slice's phases alone (no result line)")
     # phase 9 starts this script once per rank with these
@@ -5239,6 +5352,8 @@ def main() -> int:
         phase_tiny_trace(card)
     if args.only == "tiny-witness":
         phase_tiny_witness(card)
+    if args.only == "batchnorm":
+        print(json.dumps({"kernels": phase_batchnorm(card)}))
     if args.only:
         print(card)
         return 0
@@ -5268,6 +5383,8 @@ def main() -> int:
     phase_weights_day(vq_argmin, attention, layernorm, card)
     torch.cuda.empty_cache()
     shape_rows, shape_launches = phase_shapes(attention, layernorm, gen, card)
+    torch.cuda.empty_cache()
+    bn_rows = phase_batchnorm(card)
     B = TRAIN_ATTN[0]
 
     # launches: on the kernel's own main path (the sampling CLI's run, the
@@ -5352,6 +5469,7 @@ def main() -> int:
          "rn50_step_launches": rn50_launches["scanline_lerp"], "max_abs_err": v2_errs["lerp"],
          **v2_t["scanline_lerp"]},
     ]
+    kernels += bn_rows
     for kernel in kernels:
         counts = [kernel[k] for k in ("launches", "stage2_step_launches", "lanczos_256px_launches",
                                       "rn50_step_launches", "tp_step_launches") if k in kernel]

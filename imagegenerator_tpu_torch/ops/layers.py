@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagegenerator_tpu_torch.ops import conv as conv_ops
+from imagegenerator_tpu_torch.ops.kernels import batchnorm
 from imagegenerator_tpu_torch.parallel import tp as tp_ops
 
 class statistics_frozen:
@@ -122,12 +123,21 @@ class BatchNorm(nn.Module):
     and folds it into ``running_var`` as ``0.9 * old + 0.1 * batch``.
     Output dtype is ``dtype``, or ``promote(x, f32)``.
 
+    A CUDA tensor takes ``ops/kernels/batchnorm.py::batch_norm``: the
+    hand-written kernels on the ``(N*H*W, C)`` rows, forward, backward and
+    the gradient penalty's double backward. Any other tensor takes
+    ``composition``, the same function as eager PyTorch ops differentiated
+    by autograd, whose rounding the CPU parity tests and the benchmark's
+    tiny cells hold to the JAX package and to the harness's reference;
+    ``tests/test_torch_batchnorm.py`` holds the kernels' plain route to it.
+
     ``sync``, where set, is a process group (a grid's data group): the
     batch moments are then those of every rank's rows together, summed
     over the group by ``parallel/tp.py::all_reduce_sum`` (differentiable
-    to the second order, which the gradient penalty takes), as JAX's GSPMD
-    step computes them over its one logical batch. Every rank holds
-    ``x``'s number of rows."""
+    to the second order, which the gradient penalty takes; the kernels'
+    route sums its backward's and double backward's moments the same way),
+    as JAX's GSPMD step computes them over its one logical batch. Every
+    rank holds ``x``'s number of rows and the same weight and bias."""
 
     eps = 1e-5
     momentum = 0.1
@@ -143,6 +153,17 @@ class BatchNorm(nn.Module):
         self.sync = None
         self.sync_size = 1
 
+    def forward(self, x):
+        if not x.is_cuda:
+            return self.composition(x)
+        return batchnorm.batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            training=self.training, update=self.training and statistics_frozen.writes,
+            momentum=self.momentum, eps=self.eps,
+            out_dtype=self.dtype or torch.promote_types(x.dtype, torch.float32),
+            sync=self.sync, sync_size=self.sync_size,
+        )
+
     def _moments(self, rows):
         """``(E[x], E[x^2])`` over the ``(N*H*W, C)`` rows, over the
         ``sync`` group's rows where set."""
@@ -152,7 +173,9 @@ class BatchNorm(nn.Module):
         sums = tp_ops.all_reduce_sum(sums, self.sync) / (rows.shape[0] * self.sync_size)
         return sums[0], sums[1]
 
-    def forward(self, x):
+    def composition(self, x):
+        """The forward as eager PyTorch ops on f32 rows (float64 stays
+        float64), differentiated by autograd (twice for the penalty)."""
         out_dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
         B, C, H, W = x.shape
         # the (N*H*W, C) rows are a view of a channels-last x, and every
@@ -160,7 +183,7 @@ class BatchNorm(nn.Module):
         # per-channel broadcasts is channels-last too: broadcast over NCHW
         # axes, they would come out NCHW, for autograd to add into the
         # channels-last gradients an element at a time
-        rows = x.float().permute(0, 2, 3, 1).reshape(-1, C)
+        rows = x.to(torch.promote_types(x.dtype, torch.float32)).permute(0, 2, 3, 1).reshape(-1, C)
         if self.training:
             mean, mean_sq = self._moments(rows)
             var = torch.clamp_min(mean_sq - mean * mean, 0.0)

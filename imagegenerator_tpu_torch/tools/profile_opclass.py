@@ -57,6 +57,9 @@ HAND_KERNELS = (
     "_layernorm_bwd_reduce_kernel",
     "vq_argmin_kernel",
     "_scanline_lerp_kernel",
+    "batch_norm_reduce_kernel",
+    "batch_norm_finalize_kernel",
+    "batch_norm_apply_kernel",
 )
 HAND = "hand kernels"
 OTHER = "other"

@@ -16,8 +16,11 @@ codebook argmin (CUDA C++, tensor cores) over row counts, codebook sizes
 and widths off every tile size, with planted ties, calls in a row through
 one scratch buffer and a call on a second stream; the scanline lerp (Triton) over
 shapes, strided sources and coordinate kinds, and its
-``autograd.Function``; and one v2 engine step with the two on against
-off. Marked
+``autograd.Function``; one v2 engine step with the two on against
+off; and the BatchNorm kernels (CUDA C++) pass by pass at every
+BatchNorm shape of the StackGAN nets, through their Functions against
+the layer's composition, to equal bits twice, in a stage-2 step, and
+refusing other dtypes. Marked
 ``cuda``: skipped where there is no card. On a card, from the repository
 root:
 
@@ -733,3 +736,171 @@ def test_v2_step_kernels_on_vs_off(gen, dtype):
         else:
             torch.testing.assert_close(losses, other_losses, rtol=2e-2, atol=2e-2)
     assert (vq_argmin.launches, scanline_lerp.launches) == (2, 4)
+
+
+# ---------------------------------------------------------- BatchNorm
+
+# every BatchNorm shape (C, H = W) of the nets at batch 256: G1's UpBlocks;
+# D1's DownBlocks (D2's last three); G2's DownBlock, residual blocks and
+# UpBlocks; D2's first two DownBlocks
+BN_SHAPES = [(192, 4), (96, 8), (48, 16), (24, 32),
+             (128, 16), (256, 8), (512, 4),
+             (512, 16), (320, 16), (640, 16), (320, 32), (160, 64), (80, 128),
+             (32, 64), (64, 32)]
+BN_BATCH = 256
+
+
+def _bn_close(got, want, what, rtol=1e-2, scale=1e-2):
+    """Close to the plain version within ``rtol`` of each element and
+    ``scale`` of the largest: a bf16 output differs by about one rounding
+    where the two f32 values fall on either side of a bf16 value."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=scale * want.abs().max().item(), msg=what)
+
+
+def _bn_operands(gen, C, H, dtype=torch.bfloat16, batch=BN_BATCH):
+    """Rows of a seeded channels-last map ``(batch, C, H, H)`` (a mean and
+    scale per channel off 0 and 1), two upstream gradients, and f32
+    per-channel parameters and running statistics."""
+    shape = (batch, C, H, H)
+    mean = torch.randn((1, C, 1, 1), generator=gen, device="cuda")
+    x = (torch.randn(shape, generator=gen, device="cuda") * (0.5 + mean.abs()) + mean).to(dtype)
+    rows = lambda t: t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).reshape(-1, C)
+    g = rows(torch.randn(shape, generator=gen, device="cuda").to(dtype))
+    gg = rows(torch.randn(shape, generator=gen, device="cuda").to(dtype))
+    per = lambda: torch.randn(C, generator=gen, device="cuda")
+    w, b, rm, rv = 1.0 + 0.2 * per(), 0.2 * per(), 0.2 * per(), 0.5 + per().abs()
+    return rows(x), g, gg, w, b, rm, rv
+
+
+@pytest.mark.parametrize("C,H", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(gen, C, H):
+    """Each pass of the kernels against its plain version (run on the card
+    here) at a net's shape in bf16: the sums (f32, summed in another order:
+    rtol 1e-4 of the largest), and each elementwise pass from the same
+    sums, in training mode (the forward's running statistics too) and the
+    forward in eval mode."""
+    from imagegenerator_tpu_torch.ops.kernels import batchnorm as bn
+
+    x, g, gg, w, b, rm, rv = _bn_operands(gen, C, H)
+    n = x.shape[0]
+    kw = dict(count=n, training=True, update=True, eps=1e-5, momentum=0.1, out_dtype=torch.bfloat16)
+    sums = bn.batch_norm_sums(bn.FWD, x)
+    want = bn.batch_norm_sums_reference(bn.FWD, x)
+    torch.testing.assert_close(sums, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    rm2, rv2 = rm.clone(), rv.clone()
+    y, stats = bn.batch_norm_fwd(x, sums, w, b, rm, rv, **kw)
+    want_y, want_stats = bn.batch_norm_fwd_reference(x, sums, w, b, rm2, rv2, **kw)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rm, rm2, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(rv, rv2, rtol=1e-6, atol=1e-7)
+    _bn_close(y, want_y, "y")
+    y_eval, stats_eval = bn.batch_norm_fwd(x, None, w, b, rm, rv, **dict(kw, training=False, update=False))
+    want_eval, want_stats_eval = bn.batch_norm_fwd_reference(x, None, w, b, rm, rv,
+                                                             **dict(kw, training=False, update=False))
+    torch.testing.assert_close(stats_eval, want_stats_eval, rtol=1e-6, atol=0)
+    _bn_close(y_eval, want_eval, "eval y")
+
+    inv = 1.0 / n
+    bsums = bn.batch_norm_sums(bn.BWD, g, x, stats=stats)
+    want = bn.batch_norm_sums_reference(bn.BWD, g, x, stats=stats)
+    torch.testing.assert_close(bsums, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    _bn_close(bn.batch_norm_bwd(g, x, stats, w, bsums, inv),
+              bn.batch_norm_bwd_reference(g, x, stats, w, bsums, inv), "dx")
+
+    dsums = bn.batch_norm_sums(bn.DBL, gg, x, g, stats)
+    want = bn.batch_norm_sums_reference(bn.DBL, gg, x, g, stats)
+    torch.testing.assert_close(dsums, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    ggw = torch.randn(C, generator=gen, device="cuda")
+    for upstream in ((None, None), (ggw, 0.5 * ggw)):
+        full = dsums if upstream[0] is None else torch.cat([dsums, upstream[0] * bsums])
+        got = bn.batch_norm_double_bwd(gg, x, g, stats, w, full, dsums, bsums, bsums, *upstream, inv)
+        want = bn.batch_norm_double_bwd_reference(gg, x, g, stats, w, full, dsums, bsums, bsums, *upstream, inv)
+        _bn_close(got[0], want[0], "d/dg")
+        _bn_close(got[1], want[1], "d/dx")
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4 * want[2].abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H", [(80, 8), (24, 4), (6, 3), (640, 2)])
+def test_batch_norm_function_on_the_card_against_the_composition(gen, C, H, dtype):
+    """``BatchNorm`` on the card (the kernels through the Functions) against
+    its composition on the card, differentiated by autograd:
+    y, a first-order loss's gradients and a penalty's (the input
+    gradient's norm) in x, weight and bias, in training and eval mode. C =
+    6 takes the kernels' one-value route (C not a whole number of
+    pieces)."""
+    from imagegenerator_tpu_torch.ops import layers
+    from tests.test_torch_batchnorm import _losses
+
+    x = _bn_operands(gen, C, H, dtype, batch=16)[0].view(16, H, H, C).permute(0, 3, 1, 2)
+    probe = torch.randn(x.shape, generator=gen, device="cuda")
+    for training in (True, False):
+        ours, theirs = layers.BatchNorm(C, dtype=dtype), layers.BatchNorm(C, dtype=dtype)
+        for m in (ours, theirs):
+            m.to("cuda").train(training)
+        y, g1, g2 = _losses(ours, x, [ours.weight, ours.bias], probe)
+        want_y, want_g1, want_g2 = _losses(theirs.composition, x, [theirs.weight, theirs.bias], probe)
+        torch.testing.assert_close(ours.running_var, theirs.running_var, rtol=1e-5, atol=1e-6)
+        tol = dict(rtol=1e-4, scale=1e-4) if dtype == torch.float32 else {}
+        _bn_close(y, want_y, "y", **tol)
+        for what, got, want in zip(("x", "w", "b", "x2", "w2", "b2"), (*g1, *g2), (*want_g1, *want_g2)):
+            _bn_close(got, want, what, **tol)
+
+
+def test_batch_norm_repeats_bit_for_bit(gen):
+    """Forward, backward and double backward through the Functions twice
+    at G2's largest map (128 x 128 x 80, batch 256, bf16): equal bits."""
+    from imagegenerator_tpu_torch.ops.kernels import batchnorm as bn
+
+    C, H = 80, 128
+    x, g, gg, w, b, rm, rv = _bn_operands(gen, C, H)
+    x = x.view(BN_BATCH, H, H, C).permute(0, 3, 1, 2).requires_grad_(True)
+    w.requires_grad_(True)
+    runs = []
+    for _ in range(2):
+        y = bn.batch_norm(x, w, b, rm.clone(), rv.clone(), training=True, update=True, momentum=0.1, eps=1e-5,
+                          out_dtype=torch.bfloat16)
+        (gx,) = torch.autograd.grad(y, x, g.view(y.shape[0], H, H, C).permute(0, 3, 1, 2), create_graph=True)
+        second = torch.autograd.grad(gx, [x, w], gg.view(gx.shape[0], H, H, C).permute(0, 3, 1, 2))
+        runs.append([y, gx, *second])
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
+
+
+def test_batch_norm_counters_rise_in_a_stage2_step_and_no_plain_route_runs(gen, monkeypatch):
+    """A stage-2 ``train_step`` (the tiny config, bf16) runs every
+    BatchNorm pass on the kernels: the three counters rise, and the plain
+    versions, patched to raise, never run."""
+    from imagegenerator_tpu_torch.ops.kernels import batchnorm as bn
+    from imagegenerator_tpu_torch.train.stage2 import Stage2Config, Stage2System
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain BatchNorm version ran on the card")
+
+    for name in ("batch_norm_sums_reference", "batch_norm_fwd_reference", "batch_norm_bwd_reference",
+                 "batch_norm_double_bwd_reference"):
+        monkeypatch.setattr(bn, name, refuse)
+    cfg = Stage2Config.tiny(n_critic=2, compute_dtype=torch.bfloat16)
+    system = Stage2System(cfg, device="cuda", generator=gen)
+    B, T, r = 8, cfg.seq_len, cfg.resolution
+    batch = {"input_ids": torch.randint(1, cfg.bert.vocab_size, (B, T), generator=gen, device="cuda",
+                                        dtype=torch.int32),
+             "attention_mask": torch.ones((B, T), dtype=torch.int32, device="cuda"),
+             "image": torch.randint(0, 256, (B, r, r, 3), generator=gen, device="cuda", dtype=torch.uint8)}
+    before = (bn.fwd_launches, bn.bwd_launches, bn.double_bwd_launches)
+    metrics = system.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    after = (bn.fwd_launches, bn.bwd_launches, bn.double_bwd_launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_batch_norm_refuses_other_dtypes_on_the_card(gen, dtype):
+    from imagegenerator_tpu_torch.ops import layers
+
+    layer = layers.BatchNorm(8, dtype=dtype).to("cuda")
+    x = torch.randn((2, 8, 4, 4), device="cuda", dtype=dtype).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="batch_norm"):
+        layer(x)
