@@ -945,11 +945,11 @@ def phase_times(flat, batch, noise, attention, layernorm, gen, card):
     for tag, system in (("on", on), ("off", off)):
         with torch.no_grad():
             tem = system.embed_texts(ids, mask)
-            fake_64 = system._frozen_64_from_tem(tem, None, noise)
+            fake_64 = system.frozen_64(tem, noise["ca1_eps"], noise["z"])
             c_hat2 = system.con_augment_2(tem, eps=noise["ca2_eps"])[0]
             stages = {
                 "text encode": lambda: system.embed_texts(ids, mask),
-                "CA1 + G1": lambda: system._frozen_64_from_tem(tem, None, noise),
+                "CA1 + G1": lambda: system.frozen_64(tem, noise["ca1_eps"], noise["z"]),
                 "G2": lambda: system.gen_2(fake_64, c_hat2),
             }
             times = ", ".join(f"{name} {wall_ms(fn):.3f} ms" for name, fn in stages.items())

@@ -58,8 +58,7 @@ from imagegenerator_tpu_torch.parallel import tp as tp_ops
 from imagegenerator_tpu_torch.train import schedules
 from imagegenerator_tpu_torch.train.stage1 import Stage1System
 from imagegenerator_tpu_torch.train.stage2 import Stage2System
-
-_SYSTEMS = (Stage1System, Stage2System)  # they carry optimizers and a step count
+from imagegenerator_tpu_torch.train.wgan import WganSystem
 
 # layout -> (flax array -> torch array, torch array -> flax array)
 _LAYOUTS = {
@@ -158,8 +157,8 @@ def load_numpy(system, flat: dict, device=None) -> None:
             raise KeyError(f"{flat_key} (for {key}) is missing")
         sd[key] = to_torch(flat[flat_key], layout, device)
     system.load_state_dict(sd, strict=True, assign=True)
-    if isinstance(system, _SYSTEMS):
-        system._optimizers = None  # they held the replaced parameters
+    if isinstance(system, WganSystem):  # a system: optimizers and a step count
+        system.reset_optimizers()  # they held the replaced parameters
         if "step" in flat:
             system.step = int(flat["step"])
             _load_optimizers(system, flat, device)
@@ -175,7 +174,7 @@ def to_numpy(system) -> dict:
         flat_key: to_flax(sd[key], layout)
         for key, flat_key, layout in entries(system)
     }
-    if isinstance(system, _SYSTEMS):
+    if isinstance(system, WganSystem):
         flat["step"] = np.asarray(system.step, np.int32)
         flat.update(_optimizers_to_numpy(system))
     return flat

@@ -1,11 +1,7 @@
 """Stage-I system: the 64 px text-conditioned WGAN-GP training step and
-sampling — counterpart of ``imagegenerator_tpu/train/stage1.py``.
-
-``Stage1System.train_step`` runs the JAX step eagerly: ``n_critic``
-critic updates, each with the second-order gradient penalty, then one
-update of the encoder, projection, CA and generator through one BERT
-forward and backward. The modules, optimizers and step count live on the
-system and are updated in place.
+sampling — counterpart of ``imagegenerator_tpu/train/stage1.py``. The
+step trains the encoder, projection, CA, G1 and the critic through the
+update core of ``train/wgan.py``, with one BERT forward and backward.
 
 Order of work in a step (JAX ``train_step``):
   1. the caption permutation, ``tokens_mis = tokens[perm]``;
@@ -13,45 +9,24 @@ Order of work in a step (JAX ``train_step``):
      batch ``[tokens; tokens_mis]`` (or over the matched rows alone when
      ``text_reuse_mismatched``, ``tem_mis = tem[perm]``); the critic loop
      reads it detached, and the generator loss backpropagates through the
-     same graph, so a step runs one BERT forward and one backward. With
-     ``text_resample_per_iter`` every critic iteration re-encodes the
-     doubled batch, and the generator step backpropagates through the
-     last iteration's forward: the JAX step re-runs that forward with the
-     same dropout key, so its values are the same;
+     same graph. With ``text_resample_per_iter`` every critic iteration
+     re-encodes the doubled batch, and the generator step backpropagates
+     through the last iteration's forward: the JAX step re-runs that
+     forward with the same dropout key, so its values are the same;
   3. critic iteration i: G1 in training mode (BN statistics update, no
-     grad) on that iteration's CA and z noise; the image tower on real,
-     fake, then the GP's interpolation, in that order (the critic's BN
-     statistics thread through the three passes); tower(real) scored
-     against tem and tem_mis; ``loss = mean([s_mis, s_fake]) -
-     mean(s_real) + lambda * gp``; an Adam update of the critic;
+     grad) on that iteration's CA and z noise, then the critic update;
   4. the generator step, with the last iteration's CA and z noise against
-     the updated critic (a full critic forward in training mode, which
-     updates its BN once more): ``loss = -mean(s_fake) + kl``. Its
-     gradients are taken with ``torch.autograd.grad`` on the generator
-     side's parameters alone, so nothing of it reaches the critic: first
-     CA's and G1's with the text embedding's, then from that the
-     encoder's and projection's (the same gradients as one call over
-     all of them, bit for bit; the trace then shows the encoder's
-     backward on its own, as ``text_backward``).
+     the updated critic: ``loss = -mean(s_fake) + kl``, its gradients
+     taken in two calls split at the text embedding (bit for bit those of
+     one call; the encoder's backward shows as ``text_backward``).
 
-The step's phases are named in a running profiler's trace
-(``utils/profiling.py::span``): ``train_step`` around it all, ``text``
-(each text forward), ``critic`` (each iteration), ``generator``,
-``text_backward`` and ``optimizer`` (each update).
-
-Noise comes from ``generator`` on the device in a fixed order: the
-permutation, then per iteration (ca_eps, z, gp_eps), with the dropout
-masks drawn where the forwards need them. The fused attention's dropout
-seeds come from the CPU ``host_generator``. A ``noise`` dict replays
-given draws: ``perm (B,)``, ``ca_eps``, ``z``, ``gp_eps`` (each indexed by
-iteration) and ``attn_seeds`` (int32 seeds, one per fused attention layer
-and text forward, in order).
-
-Data parallelism: ``reduce`` (``parallel/dp.py::all_reduce_mean``)
-averages over the ranks where the JAX step calls ``pmean``: the critic's
-gradients before each critic update, the generator side's (encoder and
-projection included) before its update, and the four metrics. BatchNorm
-statistics stay per rank.
+Noise: the permutation, then per iteration (ca_eps, z, gp_eps), with the
+dropout masks drawn where the forwards need them. The fused attention's
+dropout seeds come from the CPU ``host_generator``. A ``noise`` dict
+replays ``perm (B,)``, ``ca_eps``, ``z``, ``gp_eps`` and ``attn_seeds``
+(int32 seeds, one per fused attention layer and text forward, in order);
+``text_masks`` replays the hoisted text forward's dropout, the keep
+masks of the doubled (or matched) caption batch in the forward's order.
 
 Tensor parallelism (``shard``, the counterpart of ``shard_state_2d`` and
 ``make_train_step_2d``): on a data x model grid (``parallel/mesh.py``)
@@ -68,20 +43,11 @@ global sum. ``reduce`` then averages over the data group only, for every
 parameter: a shard's gradient over the ranks that hold the same shard.
 Adam's moments follow their parameter's shard.
 
-``remat`` wraps the JAX package's ``jax.checkpoint`` sites in
-``ops/remat.py::remat``: the critic's image tower (real, fake and the
-GP's interpolation), its full forward in the generator step, and the
-hoisted text forward, whose dropout masks and seeds are drawn before it
-(``BertEncoder.draw``) so the recomputation replays them. The text
-forward is checkpointed a BERT layer at a time: the backward then
-recomputes one layer's activations at a time, where recomputing the
-whole forward at once would bring every layer's back together (they set
-the step's peak; ``tools/probe_torch_memory.py``).
-``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
-
-A ``noise`` dict may also replay the hoisted text forward's dropout:
-``text_masks``, the keep masks of the doubled (or matched) caption batch
-in the forward's order, with ``attn_seeds`` for the fused attention.
+``remat`` also checkpoints the hoisted text forward a BERT layer at a
+time, its dropout masks and seeds drawn before it (``BertEncoder.draw``)
+so that the recomputation replays them; recomputing the whole forward at
+once would bring every layer's activations back together (they set the
+step's peak; ``tools/probe_torch_memory.py``).
 """
 
 from __future__ import annotations
@@ -90,7 +56,6 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch import nn
 
 from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder, Draws, Predrawn
 from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
@@ -98,7 +63,7 @@ from imagegenerator_tpu_torch.models.stackgan import StageIDiscriminator, StageI
 from imagegenerator_tpu_torch.ops.layers import BatchNorm, Dense
 from imagegenerator_tpu_torch.ops.remat import remat as remat_fn
 from imagegenerator_tpu_torch.parallel import tp as tp_ops
-from imagegenerator_tpu_torch.train import losses, schedules
+from imagegenerator_tpu_torch.train import losses, wgan
 from imagegenerator_tpu_torch.utils.device import entry_device
 from imagegenerator_tpu_torch.utils.profiling import span
 
@@ -157,27 +122,7 @@ class Stage1Config:
         return cls(**defaults)
 
 
-def critic_loss(critic, real, fake, tem, tem_mis, gp_eps, lambda_gp, remat=False):
-    """One critic iteration's loss, with its graph: the image tower in
-    training mode on ``real``, ``fake``, then the GP's interpolation, in
-    that order; tower(real) scored against ``tem`` and ``tem_mis``.
-    Returns ``(mean([s_mis, s_fake]) - mean(s_real) + lambda_gp * gp,
-    gp)``. ``remat`` recomputes each tower pass in the backward."""
-
-    def head(feat, t):
-        return critic.score(feat, t).reshape(-1).float()
-
-    features = (lambda images: remat_fn(critic.features, images)) if remat else critic.features
-    feat_real = features(real)
-    feat_fake = features(fake)
-    s_real, s_mis, s_fake = head(feat_real, tem), head(feat_real, tem_mis), head(feat_fake, tem)
-    gp, _ = losses.gradient_penalty_aux(
-        lambda images: (head(features(images), tem), None), real, fake, eps=gp_eps
-    )
-    return losses.wgan_critic_loss(s_real, torch.cat([s_mis, s_fake])) + lambda_gp * gp, gp
-
-
-class Stage1System(nn.Module):
+class Stage1System(wgan.WganSystem):
     """The five modules of the JAX state (``encoder``, ``projection``,
     ``con_augment``, ``generator``, ``critic``), their optimizers and the
     step count. ``FLAX_FIELDS`` maps each module to its
@@ -193,22 +138,18 @@ class Stage1System(nn.Module):
         "generator": ("params/generator", "batch_stats/generator"),
         "critic": ("params/critic", "batch_stats/critic"),
     }
+    TRAINED = dict(zip(MODULES, MODULES))
+    GEN_SIDE = GEN_SIDE
 
     def __init__(self, config: Stage1Config, *, device=None, generator=None):
-        super().__init__()
-        self.config = c = config
+        super().__init__(config)
+        c = config
         kw = dict(device=entry_device(device), generator=generator)
         self.encoder = BertEncoder(c.bert, dtype=c.compute_dtype, **kw)
         self.projection = Dense(c.bert.hidden_size, c.tem_size, dtype=c.compute_dtype, **kw)
         self.con_augment = ConditioningAugmentation(c.tem_size, c.h_dim, c.c_dim, **kw)
-        self.generator = StageIGenerator(
-            c.c_dim, c.z_dim, c.gen_channels, dtype=c.compute_dtype, **kw
-        )
-        self.critic = StageIDiscriminator(
-            c.tem_size, c.nd, c.disc_channels, dtype=c.compute_dtype, **kw
-        )
-        self.step = 0
-        self._optimizers = None
+        self.generator = StageIGenerator(c.c_dim, c.z_dim, c.gen_channels, dtype=c.compute_dtype, **kw)
+        self.critic = StageIDiscriminator(c.tem_size, c.nd, c.disc_channels, dtype=c.compute_dtype, **kw)
         self.grid = None
         self.eval()
 
@@ -230,7 +171,7 @@ class Stage1System(nn.Module):
             return
         state = {name: self.optimizers[name.split(".", 1)[0]].state.get(p) for name, p in self.named_parameters()}
         self.encoder.shard_model(tp_ops.ModelShard(grid.model_index, grid.model, grid.model_group))
-        self._optimizers = None
+        self.reset_optimizers()
         sliced = tp_ops.sharded_keys(self)
         for name, p in self.named_parameters():
             st = state.get(name)
@@ -239,33 +180,6 @@ class Stage1System(nn.Module):
                 self.optimizers[name.split(".", 1)[0]].state[p] = {
                     k: (tp_ops.shard_tensor(v, dim, shard).clone() if k != "step" else v.clone())
                     for k, v in st.items()}
-
-    @property
-    def optimizers(self) -> dict:
-        """One optimizer per module, made at first use on the modules'
-        current parameters (a system loaded by ``convert`` replaces them)."""
-        if self._optimizers is None:
-            self._optimizers = {
-                name: (schedules.adamw if name == "encoder" else schedules.adam)(
-                    getattr(self, name).parameters(), self._base_lr(name)
-                )
-                for name in MODULES
-            }
-        return self._optimizers
-
-    def _base_lr(self, name):
-        return self.config.encoder_lr if name == "encoder" else self.config.lr
-
-    def _update(self, name):
-        """Set ``name``'s lr from its own update count, then step it. The
-        critic's StepLR boundary is ``sched_step * n_critic`` (it updates
-        n_critic times per step)."""
-        c = self.config
-        step_size = c.sched_step * (c.n_critic if name == "critic" else 1)
-        opt = self.optimizers[name]
-        with span("optimizer"):
-            schedules.set_lr(opt, self._base_lr(name), step_size, c.sched_gamma)
-            opt.step()
 
     def encode_text(self, tokens, mask, deterministic=True, generator=None,
                     host_generator=None, draws=None, remat=False):
@@ -277,10 +191,9 @@ class Stage1System(nn.Module):
         )
         return self.projection(hidden[:, 0, :].float())
 
-    def _gen_forward(self, tem, eps, z):
+    def _gen_forward(self, tem, eps, z, generator=None):
         """CA -> [c_hat || z] -> G1; returns ``(fake, mu, sigma)``."""
-        c_hat, mu, sigma = self.con_augment(tem, eps=eps)
-        return self.generator(torch.cat([c_hat, z.float()], dim=1)), mu, sigma
+        return wgan.conditioned(self.con_augment, self.generator, tem, eps, z, self.config.z_dim, generator)
 
     @torch.no_grad()
     def sample(self, batch: dict, generator=None, noise=None):
@@ -293,42 +206,20 @@ class Stage1System(nn.Module):
             tem = batch["tem"].float()
         else:
             tem = self.encode_text(batch["input_ids"], batch["attention_mask"])
-        c_hat, _, _ = self.con_augment(tem, eps=noise.get("ca_eps"), generator=generator)
-        z = noise.get("z")
-        if z is None:
-            z = torch.randn(
-                (tem.shape[0], self.config.z_dim), generator=generator, device=tem.device
-            )
-        return self.generator(torch.cat([c_hat, z.float()], dim=1))
-
-    def _critic_update(self, real, fake, tem, tem_mis, gp_eps, reduce):
-        """One critic iteration's loss and Adam update; returns
-        ``(loss, gp)`` detached."""
-        c = self.config
-        loss, gp = critic_loss(self.critic, real, fake, tem, tem_mis, gp_eps, c.lambda_gp, c.remat)
-        self.optimizers["critic"].zero_grad(set_to_none=True)
-        loss.backward()
-        reduce([p.grad for p in self.critic.parameters()])
-        self._update("critic")
-        return loss.detach(), gp.detach()
+        return self._gen_forward(tem, noise.get("ca_eps"), noise.get("z"), generator)[0]
 
     def train_step(self, batch: dict, generator=None, noise=None, host_generator=None, reduce=None):
         """One optimizer step, in place. ``batch``: ``input_ids``,
         ``attention_mask`` ``(B, T)`` int and ``image`` ``(B, 64, 64, 3)``
         in [-1, 1] (f32) or uint8 (normalised on the device as
         ``x * 2/255 - 1``); on a grid, this data index's rows of the
-        global batch. Returns ``{loss_critic, loss_gen, gp, kl}`` as 0-d
-        tensors: the last critic iteration's loss and penalty, the
-        generator loss and its KL term. ``reduce(tensors)``, where given,
-        averages a list of tensors over the data-parallel ranks in place
-        (on a grid: over the data group)."""
+        global batch. Returns the metrics of ``finish_step``; ``reduce``
+        as there (on a grid: over the data group)."""
         with span("train_step"):
             c = self.config
             reduce = reduce or (lambda tensors: None)
             noise = noise or {}
-            tokens, mask, real = batch["input_ids"], batch["attention_mask"], batch["image"]
-            if real.dtype == torch.uint8:
-                real = real.float() * (2.0 / 255.0) - 1.0
+            tokens, mask, real = batch["input_ids"], batch["attention_mask"], wgan.images(batch["image"])
             bsz, dev = tokens.shape[0], tokens.device
             grid = self.grid
             data, d = (grid.data, grid.data_index) if grid is not None else (1, 0)
@@ -338,9 +229,9 @@ class Stage1System(nn.Module):
             gather = lambda t: tp_ops.all_gather_rows(t, group, d, data)
             tokens_all, mask_all = (tokens, mask) if data == 1 else (gather(tokens), gather(mask))
 
-            def draw(name, i, fn):
+            def draw(name, i, fn, shape, **kw):
                 # each draw is the global batch's; a data index keeps its rows
-                t = noise[name][i] if name in noise else fn()
+                t = noise[name][i] if name in noise else fn(shape, generator=generator, device=dev, **kw)
                 return t if data == 1 else t[mine]
 
             perm = noise.get("perm")
@@ -377,8 +268,7 @@ class Stage1System(nn.Module):
                     raise ValueError("noise['text_masks'] replays the hoisted text forward only")
                 replayed = Predrawn(list(noise["text_masks"]), list(noise.get("attn_seeds", ())))
 
-            self.train()
-            try:
+            with self.training_mode():
                 tems = None
                 if not c.text_resample_per_iter:
                     if reuse_mis:
@@ -394,22 +284,17 @@ class Stage1System(nn.Module):
                             with torch.set_grad_enabled(i == c.n_critic - 1):
                                 tems = text_both()
                         tem, tem_mis = (t.detach() for t in tems)
-                        ca_eps = draw("ca_eps", i, lambda: torch.randn(
-                            (B, c.c_dim), generator=generator, device=dev))
-                        z = draw("z", i, lambda: torch.randn(
-                            (B, c.z_dim), generator=generator, device=dev))
-                        gp_eps = draw("gp_eps", i, lambda: torch.rand(
-                            (B, 1, 1, 1), generator=generator, device=dev, dtype=real.dtype))
+                        ca_eps = draw("ca_eps", i, torch.randn, (B, c.c_dim))
+                        z = draw("z", i, torch.randn, (B, c.z_dim))
+                        gp_eps = draw("gp_eps", i, torch.rand, (B, 1, 1, 1), dtype=real.dtype)
                         with torch.no_grad():
                             fake = self._gen_forward(tem, ca_eps, z)[0]
-                        loss_critic, gp = self._critic_update(
-                            real, fake, tem, tem_mis, gp_eps, reduce)
+                        loss_critic, gp = self.critic_update(real, fake, tem, tem_mis, gp_eps, reduce)
 
                 # generator side, with the last iteration's CA and z noise
                 tem = tems[0]
-                params_of = lambda *names: [p for n in names for p in getattr(self, n).parameters()]
-                text_params = params_of("encoder", "projection")
-                gan_params = params_of("con_augment", "generator")
+                text_params = self.params_of("encoder", "projection")
+                gan_params = self.params_of("con_augment", "generator")
                 with span("generator"):
                     fake, mu, sigma = self._gen_forward(tem, ca_eps, z)
                     s_fake = (remat_fn(self.critic, fake, tem) if c.remat else self.critic(fake, tem))
@@ -423,19 +308,5 @@ class Stage1System(nn.Module):
                     *gan_grads, g_tem = torch.autograd.grad(loss_gen, gan_params + [tem])
                 with span("text_backward"):
                     text_grads = torch.autograd.grad(tem, text_params, grad_outputs=g_tem)
-                params, grads = text_params + gan_params, [*text_grads, *gan_grads]  # GEN_SIDE's order
-                reduce(grads)
-                schedules.set_grads(params, grads)
-                for name in GEN_SIDE:
-                    self._update(name)
-            finally:
-                self.eval()
-            self.step += 1
-            metrics = {
-                "loss_critic": loss_critic,
-                "loss_gen": loss_gen.detach().clone(),
-                "gp": gp,
-                "kl": kl.detach().clone(),
-            }
-            reduce(list(metrics.values()))
-            return metrics
+                self.generator_update([*text_grads, *gan_grads], reduce)
+            return self.finish_step(loss_critic, gp, loss_gen, kl, reduce)

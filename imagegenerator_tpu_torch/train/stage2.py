@@ -1,56 +1,27 @@
 """Stage-II system: the 256 px refinement WGAN-GP training step and
-sampling — counterpart of ``imagegenerator_tpu/train/stage2.py``.
-
-The frozen stage-1 stack (text encoder -> projection -> CA1 -> G1, 64 px)
-feeds CA2 -> G2 (256 px) and the Stage-II critic. ``train_step`` runs the
-JAX step eagerly and in place: ``n_critic`` critic updates, each with the
-second-order gradient penalty, then one update of CA2 and G2. The
-modules, the three optimizers and the step count live on the system.
+sampling — counterpart of ``imagegenerator_tpu/train/stage2.py``. The
+frozen stage-1 stack (text encoder -> projection -> CA1 -> G1, 64 px)
+feeds CA2 -> G2 (256 px) and the Stage-II critic; the step trains CA2,
+G2 and the critic through the update core of ``train/wgan.py``.
 
 Order of work in a step (JAX ``train_step``):
   1. the caption permutation; the text embedding ``tem`` (``batch['tem']``,
-     or ONE forward of the frozen encoder and projection in eval mode) and
-     ``tem_mis = tem[perm]``;
+     or ONE forward of the frozen encoder and projection in eval mode,
+     the ``text`` span) and ``tem_mis = tem[perm]``;
   2. critic iteration i: the frozen CA1 -> G1 (eval mode) on that
      iteration's noise, then CA2 -> G2 in training mode without grad (G2's
-     BatchNorm statistics update); the critic's image tower on real, fake,
-     then the GP's interpolation, in that order (its BatchNorm statistics
-     thread through the three passes); tower(real) scored against ``tem``
-     and ``tem_mis``; ``loss = mean([s_mis, s_fake]) - mean(s_real) +
-     lambda * gp``; an Adam update of the critic;
+     BatchNorm statistics update), then the critic update;
   3. the generator step on the last iteration's noise: G2 once more from
-     the carried statistics and a full critic forward in training mode
-     (which updates the critic's statistics once more), ``loss =
-     -mean(s_fake) + kl(mu2, sigma2)``. Its gradients are taken with
-     ``torch.autograd.grad`` in CA2's and G2's parameters alone, so
-     nothing of it reaches the critic. The JAX step runs the frozen stack
+     the carried statistics against the updated critic, ``loss =
+     -mean(s_fake) + kl(mu2, sigma2)``. The JAX step runs the frozen stack
      again on the last iteration's keys; the stack is deterministic, so
      the port keeps that iteration's 64 px images instead (same values).
 
 Only CA2, G2 and the critic are ever in training mode or seen by an
 optimizer; the frozen stack stays in eval mode under ``no_grad``.
 
-Noise comes from ``generator`` on the device in a fixed order: the
-permutation, then per iteration (ca1_eps, z, ca2_eps, gp_eps). A
-``noise`` dict replays given draws: ``perm (B,)`` and ``ca1_eps``, ``z``,
-``ca2_eps``, ``gp_eps``, each indexed by iteration.
-
-Data parallelism: ``reduce`` (``parallel/dp.py::all_reduce_mean``)
-averages over the ranks where the JAX step calls ``pmean``: the critic's
-gradients before each critic update, CA2's and G2's before theirs, and
-the four metrics. BatchNorm statistics stay per rank.
-
-``remat`` wraps the JAX package's ``jax.checkpoint`` sites in
-``ops/remat.py::remat``: the critic's image tower (real, fake and the
-GP's interpolation) and its full forward in the generator step; the
-recomputation leaves the critic's BatchNorm statistics alone.
-``unroll_critic`` is an XLA knob and has no effect in eager PyTorch.
-
-The step's phases are named in a running profiler's trace
-(``utils/profiling.py::span``), as in stage 1: ``train_step``, ``text``
-(the frozen encoder's forward, where the batch brings tokens),
-``critic`` (each iteration), ``generator`` and ``optimizer`` (each
-update).
+Noise: the permutation, then per iteration (ca1_eps, z, ca2_eps, gp_eps);
+a ``noise`` dict replays ``perm (B,)`` and the others by iteration.
 """
 
 from __future__ import annotations
@@ -59,7 +30,6 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch import nn
 
 from imagegenerator_tpu_torch.models.bert import BertConfig, BertEncoder
 from imagegenerator_tpu_torch.models.con_augment import ConditioningAugmentation
@@ -70,8 +40,8 @@ from imagegenerator_tpu_torch.models.stackgan import (
 )
 from imagegenerator_tpu_torch.ops.layers import Dense
 from imagegenerator_tpu_torch.ops.remat import remat
-from imagegenerator_tpu_torch.train import losses, schedules
-from imagegenerator_tpu_torch.train.stage1 import Stage1Config, critic_loss
+from imagegenerator_tpu_torch.train import losses, wgan
+from imagegenerator_tpu_torch.train.stage1 import Stage1Config
 from imagegenerator_tpu_torch.utils.device import entry_device
 from imagegenerator_tpu_torch.utils.profiling import span
 
@@ -163,7 +133,7 @@ class Stage2Config:
         )
 
 
-class Stage2System(nn.Module):
+class Stage2System(wgan.WganSystem):
     """Module names are the JAX state's; ``FLAX_FIELDS`` maps each to its
     subtree of ``Stage2State`` (``frozen_params``, ``frozen_gen_stats``,
     ``params``, ``batch_stats``). The system also holds the three
@@ -182,10 +152,12 @@ class Stage2System(nn.Module):
         "gen_2": ("params/generator", "batch_stats/generator"),
         "critic_2": ("params/critic", "batch_stats/critic"),
     }
+    TRAINED = TRAINED
+    GEN_SIDE = GEN_SIDE
 
     def __init__(self, config: Stage2Config, *, device=None, generator=None):
-        super().__init__()
-        self.config = c = config
+        super().__init__(config)
+        c = config
         kw = dict(device=entry_device(device), generator=generator)
         dt = c.compute_dtype
         self.encoder = BertEncoder(c.bert, dtype=dt, **kw)
@@ -204,32 +176,7 @@ class Stage2System(nn.Module):
             **kw,
         )
         self.critic_2 = StageIIDiscriminator(c.tem_size, c.nd, c.d2_channels, dtype=dt, **kw)
-        self.step = 0
-        self._optimizers = None
         self.eval()
-
-    @property
-    def optimizers(self) -> dict:
-        """One Adam per trained module, made at first use on the modules'
-        current parameters (a system loaded by ``convert`` replaces them).
-        No optimizer holds a parameter of the frozen stack."""
-        if self._optimizers is None:
-            self._optimizers = {
-                name: schedules.adam(getattr(self, attr).parameters(), self.config.lr)
-                for name, attr in TRAINED.items()
-            }
-        return self._optimizers
-
-    def _update(self, name):
-        """Set ``name``'s lr from its own update count, then step it. The
-        critic's StepLR boundary is ``sched_step * n_critic`` (it updates
-        n_critic times per step)."""
-        c = self.config
-        step_size = c.sched_step * (c.n_critic if name == "critic" else 1)
-        opt = self.optimizers[name]
-        with span("optimizer"):
-            schedules.set_lr(opt, c.lr, step_size, c.sched_gamma)
-            opt.step()
 
     def load_stage1(self, stage1_system) -> None:
         """Take the frozen stack from a trained ``Stage1System``: its
@@ -246,15 +193,10 @@ class Stage2System(nn.Module):
         hidden = self.encoder(tokens, mask)
         return self.projection(hidden[:, 0, :].float())
 
-    def _frozen_64_from_tem(self, tem, generator, noise):
-        """CA1 -> G1 from a text embedding: 64 px images, NHWC."""
-        c_hat1, _, _ = self.con_augment_1(tem, eps=noise.get("ca1_eps"), generator=generator)
-        z = noise.get("z")
-        if z is None:
-            z = torch.randn(
-                (tem.shape[0], self.config.z_dim), generator=generator, device=tem.device
-            )
-        return self.gen_1(torch.cat([c_hat1, z.float()], dim=1))
+    def frozen_64(self, tem, eps, z, generator=None):
+        """The frozen CA1 -> G1: 64 px images, NHWC; CA1's ``eps``, then
+        ``z``, drawn from ``generator`` where None."""
+        return wgan.conditioned(self.con_augment_1, self.gen_1, tem, eps, z, self.config.z_dim, generator)[0]
 
     def _gen2_forward(self, fake_64, tem, eps, generator=None):
         """CA2 -> G2; returns ``(fake_256, mu2, sigma2)``."""
@@ -273,7 +215,7 @@ class Stage2System(nn.Module):
             tem = batch["tem"].float()
         else:
             tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
-        fake_64 = self._frozen_64_from_tem(tem, generator, noise)
+        fake_64 = self.frozen_64(tem, noise.get("ca1_eps"), noise.get("z"), generator)
         return self._gen2_forward(fake_64, tem, noise.get("ca2_eps"), generator)[0]
 
     def train_step(self, batch: dict, generator=None, noise=None, reduce=None):
@@ -281,23 +223,17 @@ class Stage2System(nn.Module):
         ``(B, 256, 256, 3)`` in [-1, 1] (f32) or uint8 (normalised on the
         device as ``x * 2/255 - 1``), and either ``input_ids`` and
         ``attention_mask`` ``(B, T)`` int or precomputed embeddings ``tem``
-        ``(B, tem_size)``. Returns ``{loss_critic, loss_gen, gp, kl}`` as
-        0-d tensors: the last critic iteration's loss and penalty, the
-        generator loss and its KL term. ``reduce(tensors)``, where given,
-        averages a list of tensors over the data-parallel ranks in place."""
+        ``(B, tem_size)``. Returns the metrics of ``finish_step``;
+        ``reduce`` as there."""
         with span("train_step"):
             c = self.config
             reduce = reduce or (lambda tensors: None)
             noise = noise or {}
-            real = batch["image"]
-            if real.dtype == torch.uint8:
-                real = real.float() * (2.0 / 255.0) - 1.0
+            real = wgan.images(batch["image"])
             bsz, dev = real.shape[0], real.device
 
             def draw(name, i, fn, shape, **kw):
-                if name in noise:
-                    return noise[name][i]
-                return fn(shape, generator=generator, device=dev, **kw)
+                return noise[name][i] if name in noise else fn(shape, generator=generator, device=dev, **kw)
 
             perm = noise.get("perm")
             if perm is None:
@@ -310,28 +246,20 @@ class Stage2System(nn.Module):
                         tem = self.embed_texts(batch["input_ids"], batch["attention_mask"])
                 tem_mis = tem[perm]
 
-            for attr in TRAINED.values():
-                getattr(self, attr).train()
-            try:
+            with self.training_mode():
                 for i in range(c.n_critic):
                     with span("critic"):
-                        frozen = {"ca1_eps": draw("ca1_eps", i, torch.randn, (bsz, c.c_dim)),
-                                  "z": draw("z", i, torch.randn, (bsz, c.z_dim))}
+                        ca1_eps = draw("ca1_eps", i, torch.randn, (bsz, c.c_dim))
+                        z = draw("z", i, torch.randn, (bsz, c.z_dim))
                         ca2_eps = draw("ca2_eps", i, torch.randn, (bsz, c.c_dim))
                         gp_eps = draw("gp_eps", i, torch.rand, (bsz, 1, 1, 1), dtype=real.dtype)
                         with torch.no_grad():
-                            fake_64 = self._frozen_64_from_tem(tem, None, frozen)
+                            fake_64 = self.frozen_64(tem, ca1_eps, z)
                             fake_256 = self._gen2_forward(fake_64, tem, ca2_eps)[0]
-                        loss_critic, gp = critic_loss(
-                            self.critic_2, real, fake_256, tem, tem_mis, gp_eps, c.lambda_gp, c.remat
-                        )
-                        self.optimizers["critic"].zero_grad(set_to_none=True)
-                        loss_critic.backward()
-                        reduce([p.grad for p in self.critic_2.parameters()])
-                        self._update("critic")
+                        loss_critic, gp = self.critic_update(real, fake_256, tem, tem_mis, gp_eps, reduce)
 
                 # generator side, with the last iteration's noise and 64 px images
-                params = [p for name in GEN_SIDE for p in getattr(self, TRAINED[name]).parameters()]
+                params = self.params_of(*GEN_SIDE)
                 with span("generator"):
                     fake_256, mu2, sigma2 = self._gen2_forward(fake_64, tem, ca2_eps)
                     s_fake = remat(self.critic_2, fake_256, tem) if c.remat else self.critic_2(fake_256, tem)
@@ -339,18 +267,5 @@ class Stage2System(nn.Module):
                     kl = losses.kl_term(mu2, sigma2, c.kl_mode)
                     loss_gen = losses.wgan_generator_loss(s_fake) + kl
                     grads = torch.autograd.grad(loss_gen, params)
-                reduce(list(grads))
-                schedules.set_grads(params, grads)
-                for name in GEN_SIDE:
-                    self._update(name)
-            finally:
-                self.eval()
-            self.step += 1
-            metrics = {
-                "loss_critic": loss_critic.detach().clone(),
-                "loss_gen": loss_gen.detach().clone(),
-                "gp": gp.detach().clone(),
-                "kl": kl.detach().clone(),
-            }
-            reduce(list(metrics.values()))
-            return metrics
+                self.generator_update(grads, reduce)
+            return self.finish_step(loss_critic, gp, loss_gen, kl, reduce)
