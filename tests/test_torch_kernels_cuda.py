@@ -20,7 +20,10 @@ shapes, strided sources and coordinate kinds, and its
 off; and the BatchNorm kernels (CUDA C++) pass by pass at every
 BatchNorm shape of the StackGAN nets, through their Functions against
 the layer's composition, to equal bits twice, in a stage-2 step, and
-refusing other dtypes. Marked
+refusing other dtypes; the convolution's Functions (``ops/conv.py``): a
+layer's forward and backward equal ``F.conv2d``'s bit for bit, and a
+critic iteration's penalty gradients through the written-out second
+order against aten's double backward and f32. Marked
 ``cuda``: skipped where there is no card. On a card, from the repository
 root:
 
@@ -904,3 +907,81 @@ def test_batch_norm_refuses_other_dtypes_on_the_card(gen, dtype):
     x = torch.randn((2, 8, 4, 4), device="cuda", dtype=dtype).contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="batch_norm"):
         layer(x)
+
+
+# ---------------------------------------------------------- the convolution's second order
+
+
+def test_conv_layer_on_the_card_equals_f_conv2d(gen):
+    """``layers.Conv2d`` (``conv_ops.conv2d``'s Functions) against
+    ``F.conv2d`` on the same operands at G2's residual shape: the output
+    and the gradients in x, w and b equal bit for bit (the same cuDNN
+    forward, and ``aten.convolution_backward`` on the same upstream
+    gradient)."""
+    from imagegenerator_tpu_torch.ops import layers
+
+    layer = layers.Conv2d(320, 640, 3, 1, 1, dtype=torch.bfloat16).to("cuda")
+    x = torch.randn((8, 320, 16, 16), generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    y = layer(x)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ours = [y, *torch.autograd.grad(y, [x, layer.weight, layer.bias], g)]
+    xl = x.detach().clone().requires_grad_(True)
+    wl, bl = layer.weight.detach().clone().requires_grad_(True), layer.bias.detach().clone().requires_grad_(True)
+    yl = torch.nn.functional.conv2d(xl, wl.to(torch.bfloat16, memory_format=torch.channels_last),
+                                    bl.to(torch.bfloat16), padding=1)
+    theirs = [yl, *torch.autograd.grad(yl, [xl, wl, bl], g)]
+    for a, b2 in zip(ours, theirs):
+        assert torch.equal(a, b2)
+
+
+def _leaf_errors(grads, truth):
+    """Per leaf: the norm of the gradient's distance from the truth's over
+    the truth's norm."""
+    return [((g.float() - t.float()).norm() / t.float().norm().clamp_min(1e-30)).item() for g, t in zip(grads, truth)]
+
+
+def test_conv_second_order_in_a_stage2_critic_iteration(gen, monkeypatch):
+    """D2 at full width (batch 8) through one critic iteration's loss,
+    the WGAN-GP penalty's second order included, and its gradients in
+    every critic leaf: in bf16 through ``conv_ops.conv2d`` (the second
+    order written out), in bf16 through ``F.conv2d`` (aten's double
+    backward, the program before), and in f32 (cuDNN without TF32) as the
+    truth. Each leaf's distance from the truth through the Functions is
+    held to twice aten's own plus 1e-3: both round the same products to
+    bf16, and neither may move a gradient further from the truth than the
+    other's rounding does."""
+    import copy
+
+    from imagegenerator_tpu_torch.models.stackgan import StageIIDiscriminator
+    from imagegenerator_tpu_torch.ops import conv as conv_ops
+    from imagegenerator_tpu_torch.train import wgan
+
+    torch.manual_seed(0)
+    base = StageIIDiscriminator(dtype=torch.bfloat16, device="cuda", generator=gen).train()
+    n = 8
+    real = torch.rand((n, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    fake = torch.rand((n, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    tem, tem_mis = (torch.randn((n, 512), generator=gen, device="cuda") for _ in range(2))
+    eps = torch.rand((n, 1, 1, 1), generator=gen, device="cuda")
+
+    def grads(dtype, aten=False):
+        critic = copy.deepcopy(base)
+        for m in critic.modules():
+            if hasattr(m, "dtype"):
+                m.dtype = dtype
+        with monkeypatch.context() as mp:
+            if aten:
+                mp.setattr(conv_ops, "conv2d", lambda x, w, b=None, *, stride=1, padding=0:
+                           torch.nn.functional.conv2d(x, w, b, stride=stride, padding=padding))
+            loss, _ = wgan.critic_loss(critic, real, fake, tem, tem_mis, eps, 10.0)
+            out = torch.autograd.grad(loss, list(critic.parameters()))
+            torch.cuda.synchronize()
+            return out
+
+    ours, theirs, truth = grads(torch.bfloat16), grads(torch.bfloat16, aten=True), grads(torch.float32)
+    err_o, err_a = _leaf_errors(ours, truth), _leaf_errors(theirs, truth)
+    print("leaf errors, Functions / aten:", [f"{a:.2e}/{b:.2e}" for a, b in zip(err_o, err_a)])
+    for name, a, b2 in zip([n for n, _ in base.named_parameters()], err_o, err_a):
+        assert a <= 2 * b2 + 1e-3, (name, a, b2)
